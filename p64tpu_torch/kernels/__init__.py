@@ -1,0 +1,1 @@
+"""p64tpu_torch subpackage."""
