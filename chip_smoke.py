@@ -9,20 +9,30 @@ package's device code.  Phases, one line each, any failure ends the run
 with a non-zero exit and no result line:
 
   1. device   -- nvidia-smi name and power limit, torch's device name
-  2. build    -- nvcc-builds the SAD-search kernel from p64tpu_torch/csrc
+  2. build    -- nvcc-builds the kernel library, all five kernels, from
+                 p64tpu_torch/csrc/sad_search.cu
   3. parity   -- CIF, search 15, 4 streams, three kinds of content: the
-                 kernel's SAD map equals the plain torch map and an int64
-                 numpy oracle; its fused (mv, best_sad, sad0) equals the
-                 plain full search
-  4. pins     -- the six fixed-quantizer pinned streams, encoded on the
-                 card, match their sha256 in tests/pinned_goldens.json
-  5. headline -- the benchmark content (128 CIF streams x 32 frames, q=10,
+                 SAD-search kernel's map equals the plain torch map and an
+                 int64 numpy oracle; its fused (mv, best_sad, sad0) equals
+                 the plain full search
+  4. pins     -- all thirteen pinned streams (fixed quantizer, rate
+                 control, MQUANT), encoded on the card, match their sha256
+                 in tests/pinned_goldens.json
+  5. gate     -- the hardware parity gate (p64tpu_torch.tools.parity) in
+                 this process: every SAD formulation and kernel against an
+                 int64 oracle, the DCT, and the gate's encodes byte-identical
+                 on the card and the CPU; it must print PARITY PASS, and
+                 each of the four SAD-map kernels must have been launched
+  6. headline -- the benchmark content (128 CIF streams x 32 frames, q=10,
                  search 15) encoded on the card; the device bit total equals
                  the serializer's count and the JAX package's figure, and
-                 the kernel was launched on every frame
-  6. timing   -- at the headline shape, the SAD kernel's (mv, best_sad,
+                 the SAD-search kernel was launched on every frame
+  7. timing   -- at the headline shape, the SAD kernel's (mv, best_sad,
                  sad0) equals the plain torch map + argmin; then both are
                  timed
+  8. maps     -- at the headline shape, each SAD-map kernel's map equals
+                 its plain version's; then each is timed beside its plain
+                 version and beside the SAD-search kernel's map mode
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -45,6 +55,12 @@ HEADLINE_BITS = 29_547_313
 HEADLINE_STREAMS, HEADLINE_FRAMES, HEADLINE_QUANT = 128, 32, 10
 PARITY_STREAMS = 4
 SEARCH = 15
+#: the one kernel source, p64tpu_torch/csrc/<name>.cu
+KERNEL_LIB = "sad_search"
+#: SAD-map kernel -> line of the TPU kernel body it replaces in
+#: p64tpu/kernels/me_pallas.py
+MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
+               "sad_map_swar": 413}
 
 
 def log(msg: str) -> None:
@@ -75,28 +91,6 @@ def bench_content(fmt, streams: int, frames_t: int):
             ys[s, t] = np.clip(b + rng.integers(0, 5, (h, w)), 0, 255)
     return dict(y=ys, cb=(ys[:, :, ::2, ::2] // 2 + 64).astype(np.uint8),
                 cr=(255 - ys[:, :, 1::2, ::2] // 2).astype(np.uint8))
-
-
-def sad_oracle(cur, ref, search: int):
-    """int64 numpy SAD map (S, (2s+1)^2, nMB), invalid offsets 1<<30."""
-    import numpy as np
-    s, h, w = cur.shape
-    r, c = h // 16, w // 16
-    cur = cur.astype(np.int64)
-    pad = np.pad(ref.astype(np.int64), ((0, 0), (search, search),
-                                        (search, search)))
-    side = 2 * search + 1
-    out = np.empty((s, side * side, r * c), np.int64)
-    y0 = (np.arange(r * c) // c) * 16
-    x0 = (np.arange(r * c) % c) * 16
-    for i, (dy, dx) in enumerate((dy, dx) for dy in range(-search, search + 1)
-                                 for dx in range(-search, search + 1)):
-        win = pad[:, search + dy:search + dy + h, search + dx:search + dx + w]
-        box = np.abs(cur - win).reshape(s, r, 16, c, 16).sum(axis=(2, 4))
-        valid = ((y0 + dy >= 0) & (y0 + dy + 16 <= h) & (x0 + dx >= 0)
-                 & (x0 + dx + 16 <= w))
-        out[:, i] = np.where(valid, box.reshape(s, -1), 1 << 30)
-    return out
 
 
 def parity_planes(kind: str, streams: int, h: int, w: int):
@@ -148,8 +142,8 @@ def check_fused(kernel, plain, what: str) -> int:
 
 
 def check_pins(dev) -> None:
-    """Encode the fixed-quantizer pinned configurations on `dev` and hold
-    them to their sha256."""
+    """Encode every pinned configuration on `dev` and hold it to its
+    sha256."""
     from p64tpu_torch.tools import pinned
 
     want = pinned.pinned_hashes()
@@ -159,6 +153,67 @@ def check_pins(dev) -> None:
             raise AssertionError(f"pin {name}: sha256 {digest} != pinned "
                                  f"{want[name]}")
         log(f"[pins] {name}: {len(data)} bytes, sha256 matches")
+
+
+def gate() -> dict:
+    """Run the hardware parity gate in this process; returns the launches
+    of each SAD-map kernel counted during it."""
+    from p64tpu_torch.kernels import me_variants_cuda
+    from p64tpu_torch.tools import parity
+
+    for name in me_variants_cuda.LAUNCHES:
+        me_variants_cuda.LAUNCHES[name] = 0
+    rc = parity.main([])
+    launches = dict(me_variants_cuda.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"parity gate failed (exit {rc})")
+    missing = [n for n in MAP_KERNELS if launches.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"the parity gate launched no {missing}")
+    log(f"[gate] PARITY PASS; SAD-map kernel launches {launches}")
+    return launches
+
+
+def map_kernels(cur, ref, card: str) -> dict:
+    """Each SAD-map kernel against its plain version on (S, H, W) planes:
+    equal maps, then both timed with CUDA events beside the SAD-search
+    kernel's map mode.  Returns name -> {max_abs_err, ms, plain_ms}."""
+    import torch
+
+    from p64tpu_torch.kernels import me_cuda, me_variants
+
+    out = {}
+    for name in MAP_KERNELS:
+        kernel, plain = me_variants.VARIANTS[name]
+        got = kernel(cur, ref, SEARCH)
+        torch.cuda.synchronize()
+        want = plain(cur, ref, SEARCH)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} != "
+                                 f"plain {want.dtype}{tuple(want.shape)}")
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"the headline shape: max |err| {err}")
+        del got, want
+        out[name] = {"max_abs_err": err}
+    k2_map, rounds = [], 2
+    for name in MAP_KERNELS:
+        kernel, plain = me_variants.VARIANTS[name]
+        k_ms, p_ms = [], []
+        for _ in range(rounds):
+            k_ms.append(cuda_ms(lambda: kernel(cur, ref, SEARCH), 20))
+            p_ms.append(cuda_ms(lambda: plain(cur, ref, SEARCH), 2))
+            k2_map.append(cuda_ms(lambda: me_cuda.sad_search_cuda(
+                cur, ref, SEARCH, with_map=True), 20))
+        out[name].update(ms=min(k_ms), plain_ms=min(p_ms))
+        log(f"[maps] {name} {tuple(cur.shape)} s={SEARCH}: map == plain; "
+            f"kernel {min(k_ms):.3f} ms, plain {min(p_ms):.3f} ms per call "
+            f"on {card}")
+    log(f"[maps] sad_search map mode (A/B reference): {min(k2_map):.3f} ms "
+        f"per call on {card}")
+    return out
 
 
 def headline(dev, dev_frames, card: str) -> int:
@@ -233,6 +288,7 @@ def main() -> int:
 
     from p64tpu.spec.constants import CIF
     from p64tpu_torch.kernels import _build, me, me_cuda
+    from p64tpu_torch.tools.parity import sad_oracle
 
     dev = torch.device("cuda", 0)
 
@@ -244,8 +300,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load("sad_search")
-    log(f"[build] sad_search.cu built and loaded in "
+    _build.load(KERNEL_LIB)
+    log(f"[build] {KERNEL_LIB}.cu built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # 3. SAD parity at CIF
@@ -280,7 +336,10 @@ def main() -> int:
     # 4. pins
     check_pins(dev)
 
-    # 5. headline shape
+    # 5. the parity gate, with its kernels' launches counted
+    map_launches = gate()
+
+    # 6. headline shape
     frames = bench_content(CIF, HEADLINE_STREAMS, HEADLINE_FRAMES)
     dev_frames = {k: torch.as_tensor(v, device=dev) for k, v in frames.items()}
     launches = headline(dev, dev_frames, card)
@@ -289,7 +348,7 @@ def main() -> int:
                              f"headline encode, expected >= "
                              f"{HEADLINE_FRAMES}")
 
-    # 6. kernel against plain at the headline shape (frame 1 against
+    # 7. kernel against plain at the headline shape (frame 1 against
     # frame 0): equal outputs, then time
     cur = dev_frames["y"][:, 1].contiguous()
     ref = dev_frames["y"][:, 0].contiguous()
@@ -311,13 +370,23 @@ def main() -> int:
         f"{min(kernel_ms):.3f} ms, plain torch map+argmin "
         f"{min(plain_ms):.3f} ms per call on {card}")
 
+    # 8. the SAD-map kernels at the headline shape
+    maps = map_kernels(cur, ref, card)
+
     log(card)
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "sad_search", "route": "cuda",
-        "source": "p64tpu_torch/csrc/sad_search.cu",
+        "source": f"p64tpu_torch/csrc/{KERNEL_LIB}.cu",
         "replaces": "p64tpu/kernels/me_pallas.py:128",
         "launches": launches, "max_abs_err": max_err,
-        "ms": min(kernel_ms), "plain_ms": min(plain_ms)}]}))
+        "ms": min(kernel_ms), "plain_ms": min(plain_ms)}]
+    for name, replaces in MAP_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"p64tpu_torch/csrc/{KERNEL_LIB}.cu",
+            "replaces": f"p64tpu/kernels/me_pallas.py:{replaces}",
+            "launches": map_launches[name], **maps[name]})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

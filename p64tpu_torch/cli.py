@@ -3,10 +3,10 @@
 Examples:
   python -m p64tpu_torch -s out.p64 -q 10 input.y4m
   python -m p64tpu_torch -s out.p64 -q 8 -x QCIF -v input.yuv
-  python -m p64tpu_torch -s out.p64 -q 10 --device cpu input.y4m
+  python -m p64tpu_torch -s out.p64 -x QCIF -r 256000 input.yuv
+  python -m p64tpu_torch -s out.p64 -r 1024000 -m 3 --device cpu input.y4m
 
-Only the fixed-quantizer encode is ported: decode (-d), rate control
-(-r > 0), MQUANT segments (-m > 1) and resync (-e) exit with status 2.
+Only the encoder is ported: decode (-d) and resync (-e) exit with status 2.
 """
 
 from __future__ import annotations
@@ -33,9 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-q", "--quant", type=int, default=8,
                    help="fixed quantizer 1..31 (default 8)")
     p.add_argument("-r", "--rate", type=int, default=0,
-                   help="bit rate in bit/s (rate control: not yet ported)")
+                   help="bit rate in bit/s; enables rate control")
     p.add_argument("-f", "--frame-rate", type=int, default=30,
-                   help="input frame rate for the statistics (default 30)")
+                   help="input frame rate for rate control (default 30)")
     p.add_argument("-a", "--first", type=int, default=0,
                    help="first frame index")
     p.add_argument("-b", "--last", type=int, default=None,
@@ -47,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-I", "--intra-period", type=int, default=0,
                    help="force an all-intra frame every N frames")
     p.add_argument("-m", "--mquant-segments", type=int, default=1,
-                   help="mid-GOB quantizer segments (not yet ported)")
+                   help="mid-GOB quantizer adaptation: segments per GOB "
+                        "(1 = GQUANT only; needs -r)")
     p.add_argument("-l", "--no-filter", action="store_true",
                    help="disable the H.261 loop filter (no FIL MTYPEs)")
     p.add_argument("-e", "--resync", action="store_true",
@@ -64,10 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_ported(args) -> Optional[str]:
     if args.decode:
         return "decode (-d)"
-    if args.rate > 0:
-        return "rate control (-r > 0)"
-    if args.mquant_segments > 1:
-        return "MQUANT segments (-m > 1)"
     if args.resync:
         return "resync (-e)"
     return None
@@ -85,6 +82,11 @@ def _validate(args) -> Optional[str]:
         return f"-f/--frame-rate must be positive (got {args.frame_rate})"
     if args.intra_period < 0:
         return f"-I/--intra-period must be >= 0 (got {args.intra_period})"
+    if not 1 <= args.mquant_segments <= 33:
+        return ("-m/--mquant-segments must be 1..33 "
+                f"(got {args.mquant_segments})")
+    if args.mquant_segments > 1 and args.rate <= 0:
+        return "-m/--mquant-segments > 1 needs rate control (-r)"
     if args.first < 0 or (args.last is not None and args.last < args.first):
         return f"bad frame range -a {args.first} -b {args.last}"
     return None
@@ -108,8 +110,10 @@ def run_encode(args) -> int:
     if t == 0:
         print("no input frames", file=sys.stderr)
         return 1
-    cfg = EncoderConfig(fmt=fmt, search=max(args.search, 0),
-                        rate=RateConfig(fixed_quant=args.quant),
+    rate = RateConfig(bit_rate=args.rate, frame_rate=args.frame_rate,
+                      fixed_quant=args.quant,
+                      mquant_segments=args.mquant_segments)
+    cfg = EncoderConfig(fmt=fmt, search=max(args.search, 0), rate=rate,
                         intra_only=args.search <= 0,
                         intra_period=args.intra_period,
                         decisions=DecisionConfig(
@@ -119,15 +123,17 @@ def run_encode(args) -> int:
         cfg, {k: v[None] for k, v in frames.items()}, device=device)
     with open(args.stream, "wb") as f:
         f.write(data[0])
+    coded = outputs["frame_coded"][0].cpu().numpy()
     bits = outputs["total_bits"][0].cpu().numpy()
     if args.verbose:
         rec = {k: outputs["recon_" + k][0].cpu().numpy()
                for k in ("y", "cb", "cr")}
         for i in range(t):
             print(stats.frame_report(
-                i, True, int(bits[i]), {k: rec[k][i] for k in rec},
+                i, bool(coded[i]), int(bits[i]), {k: rec[k][i] for k in rec},
                 {k: frames[k][i] for k in frames}))
-    print(stats.sequence_report(int(np.sum(bits)), t, t, args.frame_rate))
+    print(stats.sequence_report(int(np.sum(bits)), int(coded.sum()), t,
+                                args.frame_rate))
     print(f"wrote {len(data[0])} bytes to {args.stream}")
     return 0
 

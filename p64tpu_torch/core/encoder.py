@@ -1,16 +1,24 @@
-"""H.261 encoder, fixed quantizer: whole frames as tensors on the device.
+"""H.261 encoder: whole frames as tensors on the device.
 
-Port of `p64tpu/core/encoder.py` for rate control off.  Per frame, for a
-batch of S independent streams at once:
+Port of `p64tpu/core/encoder.py`.  Per frame, for a batch of S independent
+streams at once:
 
     1. full-search ME over all MBs          (kernels.me -> CUDA kernel)
     2. mode decisions                       (control.decisions)
     3. MC prediction + loop filter          (core.predict)
     4. residual -> integer DCT              (kernels.dct)
-    5. quantize, CBP/MTYPE/coded masks and the EXACT bit cost of every GOB
-       at once (no cross-GOB dependency at a fixed quantizer)
-                                            (kernels.quant, entropy.lengths)
+    5. quantize, CBP/MTYPE/coded masks and the EXACT bit cost of each GOB:
+       every GOB at once at a fixed quantizer; under rate control a host
+       loop over the GOBs in transmission order, because GOB g's bits set
+       GOB g+1's quantizer (optionally with mid-GOB MQUANT segments)
+                                            (kernels.quant, entropy.lengths,
+                                             control.ratecontrol)
     6. local reconstruction                 (core.reconstruct)
+
+Under rate control a stream whose virtual buffer is over the skip threshold
+skips the input frame.  The reference's `lax.cond` is a per-stream select
+under `vmap`, and so it is here: the picture is encoded for every stream,
+and a skipped stream takes the skip picture's state and outputs instead.
 
 The frame loop is a host `for` loop carrying the state (the reference's
 `lax.scan`); the stream axis is explicit (the reference's `vmap`).  The
@@ -41,7 +49,9 @@ from ..control.ratecontrol import (
     STUFF_BITS,
     RateConfig,
     drain_after_frame,
+    drain_skipped,
     gob_quant,
+    should_skip,
     stuff_count,
 )
 from ..entropy import lengths
@@ -94,10 +104,6 @@ class EncoderConfig:
             raise ValueError(
                 f"search must be 0..{DEFAULT_SEARCH_RANGE} (H.261 MV range);"
                 f" got {self.search}")
-        if self.rate.enabled:
-            raise NotImplementedError(
-                "rate control (bit_rate > 0) is not ported yet; use a fixed "
-                "quantizer")
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +122,8 @@ def init_state(cfg: EncoderConfig, streams: int,
         ref_cr=torch.zeros(ch, dtype=torch.uint8, device=device),
         refresh=torch.zeros((streams, fmt.num_mbs), dtype=torch.int32,
                             device=device),
-        # rate control off: the virtual buffer starts empty
-        buffer=torch.zeros((streams,), dtype=torch.int32, device=device),
+        buffer=torch.full((streams,), cfg.rate.initial_buffer(),
+                          dtype=torch.int32, device=device),
         frame_idx=torch.zeros((streams,), dtype=torch.int32, device=device),
     )
 
@@ -154,6 +160,15 @@ def state_to_numpy(state: State) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
+#: base MTYPE -> its MQUANT variant (identity where none exists; only
+#: coefficient-bearing types can carry MQUANT, per the H.261 MTYPE table)
+_MQ_UPGRADE = np.arange(len(MTYPE_BY_NAME), dtype=np.int32)
+for _base, _mq in (("intra", "intra_mquant"), ("inter", "inter_mquant"),
+                   ("inter_mc_coef", "inter_mc_mquant"),
+                   ("inter_fil_coef", "inter_fil_mquant")):
+    _MQ_UPGRADE[_MT[_base]] = _MT[_mq]
+
+
 def _mtype_from_flags(intra, use_mc, fil, has_coef):
     mt = torch.full(intra.shape, _MT["inter"], dtype=torch.int32,
                     device=intra.device)
@@ -176,6 +191,129 @@ def _quantize_derive(coefs_t, intra_t, mc_t, fil_t, q):
     levels = torch.where(coded[..., None, None], levels, 0)
     mtype = _mtype_from_flags(intra_t, mc_t, fil_t, has_coef)
     return levels, cbp, coded, mtype
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 where none), as
+    `jnp.argmax` gives it on a bool array."""
+    return mask.to(torch.uint8).argmax(dim=-1)
+
+
+def _gob_mquant(cfg: EncoderConfig, buffer, coefs_g, intra_g, mc_g, fil_g,
+                mv_g):
+    """One GOB of every stream with mid-GOB MQUANT adaptation
+    (`RateConfig.mquant_segments` > 1), as the reference's
+    `process_gob_mquant`: segment s re-evaluates the buffer law including
+    the modeled bits of earlier segments, and a changed quantizer is
+    signaled on the segment's first coefficient-bearing MB through its
+    MQUANT MTYPE variant.
+
+    Two priced passes choose the segment quantizers: pass 1 models per-MB
+    bits at the GOB quantizer q0, pass 1b at the provisional segment
+    quantizers; both add each quantizer change's signaling cost (5-bit
+    MQUANT plus the MTYPE length delta) to later segments' projections.
+
+    buffer: (S,) int32; the GOB's tensors carry a leading stream axis.
+    Returns (levels, cbp, coded, mtype, q0, quant_mb)."""
+    rate = cfg.rate
+    nseg = rate.mquant_segments
+    dev = buffer.device
+    seg_id = (torch.arange(MBS_PER_GOB, device=dev) * nseg) // MBS_PER_GOB
+    seg_oh = seg_id[None, :] == torch.arange(nseg, device=dev)[:, None]
+    q0 = gob_quant(rate, buffer)                               # (S,)
+    mtype_len = device_const(lengths.MTYPE_LEN, dev)
+    mq_up = device_const(_MQ_UPGRADE, dev)
+
+    def model_bits(q_mb):
+        """Per-MB modeled bits at an (S, 33) quantizer, plus the
+        coefficient mask and MTYPEs the signaling cost needs."""
+        lv, cb, cd, mt = _quantize_derive(coefs_g, intra_g, mc_g, fil_g,
+                                          q_mb[..., None, None])
+        return (lengths.gob_payload_bits_per_mb(cd, mt, mv_g, cb, lv),
+                cb > 0, mt)
+
+    def seg_quants(model):
+        """(S, nseg) segment quantizers from a per-MB bit model, walking
+        the segments in order as the real effective-quant chain does."""
+        mb_bits, hc, mt = model
+        seg_bits = torch.where(seg_oh, mb_bits[:, None, :], 0).sum(
+            dim=-1, dtype=torch.int32)                         # (S, nseg)
+        segcoef = seg_oh & hc[:, None, :]                      # (S, nseg, 33)
+        any_coef = segcoef.any(dim=-1)
+        mt_first = torch.gather(mt, 1, _first_true(segcoef)).long()
+        sig_cost = torch.where(
+            any_coef,
+            lengths.MQUANT_BITS + mtype_len[mq_up[mt_first].long()]
+            - mtype_len[mt_first], 0)
+        qs = []
+        eff = q0
+        acc = torch.zeros_like(buffer)
+        for si in range(nseg):
+            q_s = gob_quant(rate, buffer + acc)
+            qs.append(q_s)
+            if si > 0:
+                change = any_coef[:, si] & (q_s != eff)
+                eff = torch.where(change, q_s, eff)
+                acc = acc + torch.where(change, sig_cost[:, si], 0)
+            acc = acc + seg_bits[:, si]
+        return torch.stack(qs, dim=1)
+
+    def per_mb(q_seg):
+        return torch.where(seg_oh, q_seg[:, :, None], 0).sum(
+            dim=1, dtype=torch.int32)                          # (S, 33)
+
+    # pass 1: bits at q0 -> provisional segment quantizers; pass 1b: bits
+    # at those -> final segment quantizers
+    q_seg1 = seg_quants(model_bits(q0[:, None].expand(-1, MBS_PER_GOB)))
+    q_seg = seg_quants(model_bits(per_mb(q_seg1)))
+    q_mb = per_mb(q_seg)
+    # pass 2: real quantization at the per-MB quantizer
+    levels, cbp, coded, base_mtype = _quantize_derive(
+        coefs_g, intra_g, mc_g, fil_g, q_mb[..., None, None])
+    has_coef = cbp > 0
+    # effective-quant chain: only a coefficient-bearing MB can carry MQUANT,
+    # so a coefficient-free segment leaves the chain unchanged (its levels
+    # are all zero, and any quantizer dequantizes them to zero)
+    idxs = torch.arange(MBS_PER_GOB, device=dev)
+    eff = q0
+    mq_flag = torch.zeros_like(has_coef)
+    quant_mb = q_mb
+    for si in range(1, nseg):
+        in_s = seg_id == si
+        segcoef = has_coef & in_s
+        change = segcoef.any(dim=-1) & (q_seg[:, si] != eff)
+        first = _first_true(segcoef)
+        mq_flag = mq_flag | (change[:, None] & (idxs == first[:, None]))
+        eff = torch.where(change, q_seg[:, si], eff)
+        quant_mb = torch.where(in_s, eff[:, None], quant_mb)
+    mtype = torch.where(mq_flag, mq_up[base_mtype.long()], base_mtype)
+    return levels, cbp, coded, mtype, q0, quant_mb
+
+
+def _gob_chain(cfg: EncoderConfig, buffer, coefs_t, intra_t, mc_t, fil_t,
+               mv_t):
+    """Rate-controlled GOBs in transmission order: GOB g's bits feed GOB
+    g+1's quantizer, so this is a host loop over the GOBs (the reference's
+    `lax.scan`) carrying each stream's own (S,) buffer.
+
+    Returns (levels, cbp, coded, mtype, gquant, quant, bits), each stacked
+    as (S, nGOB, ...)."""
+    outs = []
+    for g in range(coefs_t.shape[1]):
+        xs = (coefs_t[:, g], intra_t[:, g], mc_t[:, g], fil_t[:, g])
+        if cfg.rate.mquant_segments > 1:
+            levels, cbp, coded, mtype, q, quant_mb = _gob_mquant(
+                cfg, buffer, *xs, mv_t[:, g])
+        else:
+            q = gob_quant(cfg.rate, buffer)
+            levels, cbp, coded, mtype = _quantize_derive(
+                *xs, q[:, None, None, None])
+            quant_mb = q[:, None].expand(-1, MBS_PER_GOB)
+        bits = lengths.gob_payload_bits(
+            coded, mtype, mv_t[:, g], cbp, levels) + lengths.GOB_HEADER_BITS
+        buffer = buffer + bits
+        outs.append((levels, cbp, coded, mtype, q, quant_mb, bits))
+    return tuple(torch.stack(z, dim=1) for z in zip(*outs))
 
 
 def _encode_picture(cfg: EncoderConfig, state: State, cur_y: torch.Tensor,
@@ -231,18 +369,25 @@ def _encode_picture(cfg: EncoderConfig, state: State, cur_y: torch.Tensor,
                                      pred_blocks)
     coefs = fdct8x8_zz(resid)                         # (S, nMB, 6, 64)
 
-    # ---- every GOB at once, in transmission order (fixed quantizer) ----
-    ngob = fmt.num_gobs
-    gq = gob_quant(cfg.rate, state["buffer"])          # (S,)
-    gquant = gq[:, None].expand(s, ngob).contiguous()
-    levels_t, cbp_t, coded_t, mtype_t = _quantize_derive(
-        to_gob_order(fmt, coefs), to_gob_order(fmt, intra),
-        to_gob_order(fmt, use_mc), to_gob_order(fmt, fil),
-        gquant[:, :, None, None, None])
-    gob_bits = lengths.gob_payload_bits(
-        coded_t, mtype_t, to_gob_order(fmt, mv), cbp_t,
-        levels_t) + lengths.GOB_HEADER_BITS            # (S, nGOB)
-    quant_t = gquant[:, :, None].expand(s, ngob, MBS_PER_GOB)
+    if cfg.rate.enabled:
+        # ---- per-GOB rate-control chain (transmission order) ----
+        levels_t, cbp_t, coded_t, mtype_t, gquant, quant_t, gob_bits = (
+            _gob_chain(cfg, state["buffer"], to_gob_order(fmt, coefs),
+                       to_gob_order(fmt, intra), to_gob_order(fmt, use_mc),
+                       to_gob_order(fmt, fil), to_gob_order(fmt, mv)))
+    else:
+        # ---- every GOB at once, in transmission order (fixed quantizer) --
+        ngob = fmt.num_gobs
+        gq = gob_quant(cfg.rate, state["buffer"])          # (S,)
+        gquant = gq[:, None].expand(s, ngob).contiguous()
+        levels_t, cbp_t, coded_t, mtype_t = _quantize_derive(
+            to_gob_order(fmt, coefs), to_gob_order(fmt, intra),
+            to_gob_order(fmt, use_mc), to_gob_order(fmt, fil),
+            gquant[:, :, None, None, None])
+        gob_bits = lengths.gob_payload_bits(
+            coded_t, mtype_t, to_gob_order(fmt, mv), cbp_t,
+            levels_t) + lengths.GOB_HEADER_BITS            # (S, nGOB)
+        quant_t = gquant[:, :, None].expand(s, ngob, MBS_PER_GOB)
     frame_bits = gob_bits.sum(dim=-1, dtype=torch.int32)
     buffer_after = state["buffer"] + frame_bits
 
@@ -300,6 +445,62 @@ def _encode_picture(cfg: EncoderConfig, state: State, cur_y: torch.Tensor,
     return new_state, out
 
 
+def _skip_picture(cfg: EncoderConfig, state: State, cur_y: torch.Tensor):
+    """The state and outputs of a skipped input frame, for every stream
+    (the reference's `_skip_picture`): references and refresh counters
+    stay, the buffer drains one frame's budget, TR advances."""
+    fmt = cfg.fmt
+    s, n_mb, dev = cur_y.shape[0], fmt.num_mbs, cur_y.device
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros((s, *shape), dtype=dtype, device=dev)
+
+    new_state = dict(
+        ref_y=state["ref_y"], ref_cb=state["ref_cb"], ref_cr=state["ref_cr"],
+        refresh=state["refresh"],
+        buffer=drain_skipped(cfg.rate, state["buffer"]),
+        frame_idx=state["frame_idx"] + 1,
+    )
+    diff = state["ref_y"].to(torch.int64) - cur_y.to(torch.int64)
+    out = dict(
+        frame_coded=zeros(dtype=torch.bool),
+        tr=state["frame_idx"] & 31,
+        gquant=zeros(fmt.num_gobs), quant_mb=zeros(n_mb),
+        coded=zeros(n_mb, dtype=torch.bool), mtype=zeros(n_mb),
+        mv=zeros(n_mb, 2), cbp=zeros(n_mb),
+        levels8=zeros(n_mb, 6, 64, dtype=torch.int8),
+        dc_intra=zeros(n_mb, 6, dtype=torch.uint8),
+        total_bits=zeros(), n_stuff=zeros(),
+        sse_y=(diff * diff).sum(dim=(-2, -1)).to(torch.float32),
+    )
+    if cfg.emit_recon:
+        out.update(recon_y=state["ref_y"], recon_cb=state["ref_cb"],
+                   recon_cr=state["ref_cr"])
+    return new_state, out
+
+
+def _per_stream(skip: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """a for the streams where skip is set, b for the others."""
+    return torch.where(skip.view(-1, *([1] * (b.dim() - 1))), a, b)
+
+
+def encode_frame_step(cfg: EncoderConfig, state: State, cur_y: torch.Tensor,
+                      cur_cb: torch.Tensor, cur_cr: torch.Tensor):
+    """One input frame of every stream; under rate control a stream may
+    skip it.  Returns (new_state, out)."""
+    coded_state, coded_out = _encode_picture(cfg, state, cur_y, cur_cb,
+                                             cur_cr)
+    if not cfg.rate.enabled:
+        return coded_state, coded_out
+    skip = should_skip(cfg.rate, state["buffer"]) & (state["frame_idx"] > 0)
+    skip_state, skip_out = _skip_picture(cfg, state, cur_y)
+    return ({k: _per_stream(skip, skip_state[k], v)
+             for k, v in coded_state.items()},
+            {k: _per_stream(skip, skip_out[k], v)
+             for k, v in coded_out.items()})
+
+
 # ---------------------------------------------------------------------------
 # sequences
 # ---------------------------------------------------------------------------
@@ -331,7 +532,7 @@ def encode_sequence(cfg: EncoderConfig, frames: Mapping[str, object],
         state = init_state(cfg, s, device)
     outs = []
     for i in range(t):
-        state, out = _encode_picture(
+        state, out = encode_frame_step(
             cfg, state, fr["y"][:, i].contiguous(),
             fr["cb"][:, i].contiguous(), fr["cr"][:, i].contiguous())
         outs.append(out)

@@ -46,6 +46,8 @@ _MTYPE_CBP = luts.MTYPE_CBP.astype(np.bool_)
 _MTYPE_TCOEFF = luts.MTYPE_TCOEFF.astype(np.bool_)
 _MTYPE_INTRA = luts.MTYPE_INTRA.astype(np.bool_)
 _MTYPE_MQUANT = luts.MTYPE_MQUANT.astype(np.bool_)
+#: VLC length of each MTYPE (the MQUANT cost model prices its upgrades)
+MTYPE_LEN = _MTYPE_LEN
 
 
 def _lut(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ MI2: np.ndarray = np.round(np.kron(M_FLOAT, M_FLOAT)
 MI2_ZZ: np.ndarray = MI2[np.asarray(ZIGZAG)]
 
 _MI_F64 = MI.astype(np.float64)
+_MI2_T_F64 = np.ascontiguousarray(MI2.T, dtype=np.float64)
 _MI2_ZZ_T_F64 = np.ascontiguousarray(MI2_ZZ.T, dtype=np.float64)
 
 
@@ -57,14 +58,24 @@ def rshift_round(v: torch.Tensor, s: int) -> torch.Tensor:
     return (v + (1 << (s - 1))) >> s
 
 
+def _fdct(blocks: torch.Tensor, basis_t: np.ndarray) -> torch.Tensor:
+    """(..., 8, 8) integer -> (..., 64) int32 through a (64, 64) basis."""
+    shp = blocks.shape[:-2]
+    v = blocks.reshape(-1, 64).to(torch.float64)
+    s = torch.matmul(v, device_const(basis_t, blocks.device)).to(torch.int64)
+    return rshift_round(s, FWD_SCALE_BITS).to(torch.int32).reshape(*shp, 64)
+
+
+def fdct8x8(blocks: torch.Tensor) -> torch.Tensor:
+    """Forward integer DCT: (..., 8, 8) integer -> (..., 8, 8) int32, in
+    natural order."""
+    return _fdct(blocks, _MI2_T_F64).reshape(blocks.shape)
+
+
 def fdct8x8_zz(blocks: torch.Tensor) -> torch.Tensor:
     """Forward integer DCT emitting zigzag-ordered coefficients:
     (..., 8, 8) integer -> (..., 64) int32."""
-    shp = blocks.shape[:-2]
-    v = blocks.reshape(-1, 64).to(torch.float64)
-    mi2 = device_const(_MI2_ZZ_T_F64, blocks.device)
-    s = torch.matmul(v, mi2).to(torch.int64)
-    return rshift_round(s, FWD_SCALE_BITS).to(torch.int32).reshape(*shp, 64)
+    return _fdct(blocks, _MI2_ZZ_T_F64)
 
 
 def idct8x8(coefs: torch.Tensor) -> torch.Tensor:

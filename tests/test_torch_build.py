@@ -8,7 +8,7 @@ import re
 import pytest
 import torch
 
-from p64tpu_torch.kernels import _build, me_cuda
+from p64tpu_torch.kernels import _build, me_cuda, me_variants, me_variants_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,6 +21,19 @@ def test_sad_search_cuda_refuses_cpu_tensors():
     assert me_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("name", sorted(me_variants_cuda.LAUNCHES))
+def test_map_kernels_refuse_cpu_tensors(name):
+    cur = torch.zeros((1, 48, 64), dtype=torch.uint8)
+    before = dict(me_variants_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        getattr(me_variants_cuda, name + "_cuda")(cur, cur.clone(), 4)
+    assert me_variants_cuda.LAUNCHES == before
+    # the dispatching entry point takes the plain path on the CPU alone
+    got = getattr(me_variants, name)(cur, cur.clone(), 4)
+    assert me_variants_cuda.LAUNCHES == before
+    assert got.shape == (1, 81, 12) and got.dtype == torch.int32
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -30,6 +43,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("sad_search")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("sad_search")
     assert not (tmp_path / "build" / "sad_search.so").exists()
 
 

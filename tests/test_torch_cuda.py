@@ -1,4 +1,5 @@
-"""The SAD-search CUDA kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card: the
+SAD-search kernel and the four SAD-map kernels.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they also run on a GPU host without it:
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from p64tpu_torch.kernels import me, me_cuda
+from p64tpu_torch.kernels import me, me_cuda, me_variants, me_variants_cuda
 
 torch.set_num_threads(1)
 
@@ -66,3 +67,49 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         me_cuda.sad_search_cuda(cur.transpose(1, 2), ref.transpose(1, 2), 4)
     with pytest.raises(ValueError, match="search"):
         me_cuda.sad_search_cuda(cur, ref, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(me_variants.VARIANTS))
+@pytest.mark.parametrize("shape,search", [((2, 48, 64), 4),
+                                          ((2, 144, 176), 15),
+                                          ((3, 288, 352), 15)])
+def test_map_kernel_equals_plain(cuda, name, shape, search):
+    cur, ref = _planes(sum(shape) + search, shape, cuda)
+    kernel, plain = me_variants.VARIANTS[name]
+    before = me_variants_cuda.LAUNCHES[name]
+    got = kernel(cur, ref, search)
+    torch.cuda.synchronize()
+    assert me_variants_cuda.LAUNCHES[name] == before + 1
+    want = plain(cur, ref, search)
+    assert torch.equal(want, me.sad_map(cur, ref, search))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(me_variants.VARIANTS))
+def test_map_kernel_on_near_identical_planes(cuda, name):
+    # small residuals and a flat patch: many ties, every odd dx
+    rng = np.random.default_rng(9)
+    base = rng.integers(0, 256, (2, 144, 176))
+    base[:, 32:96, 32:128] = 77
+    ref = np.clip(base + rng.integers(-2, 3, base.shape), 0, 255)
+    cur_t = torch.as_tensor(base.astype(np.uint8), device=cuda)
+    ref_t = torch.as_tensor(ref.astype(np.uint8), device=cuda)
+    kernel, plain = me_variants.VARIANTS[name]
+    assert torch.equal(kernel(cur_t, ref_t, 15), plain(cur_t, ref_t, 15))
+
+
+@pytest.mark.cuda
+def test_map_kernels_refuse_what_they_do_not_take(cuda):
+    cur, ref = _planes(4, (1, 48, 64), cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        me_variants_cuda.sad_map_i8_cuda(cur.int(), ref.int(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        me_variants_cuda.sad_map_swar_cuda(cur.transpose(1, 2),
+                                           ref.transpose(1, 2), 4)
+    with pytest.raises(ValueError, match="search"):
+        me_variants_cuda.sad_map_f32_cuda(cur, ref, 16)
+    wide = torch.zeros((1, 16, 368), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="sad_map_rp kernel launch failed"):
+        me_variants_cuda.sad_map_rp_cuda(wide, wide, 4)

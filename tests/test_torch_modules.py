@@ -190,6 +190,7 @@ def test_fdct_idct_match_jax_on_random_and_extreme_blocks():
     blk[0, 0, 3] = -checker
     blk[1, 0, :] = rng.integers(0, 256, (6, 8, 8))
     _eq(dct.fdct8x8_zz(_t(blk)), jdct.fdct8x8_zz(jnp.asarray(blk)))
+    _eq(dct.fdct8x8(_t(blk)), jdct.fdct8x8(jnp.asarray(blk)))
     coefs = rng.integers(-300, 301, (S, 40, 6, 8, 8))
     coefs[0, 0, 0] = 2047
     coefs[0, 0, 1] = -2048
@@ -270,9 +271,10 @@ def test_ratecontrol_disabled_matches_jax(fixed_quant):
         np.broadcast_to(jrc.should_skip(jcfg, jb), buf.shape))
     _eq(ratecontrol.drain_skipped(tcfg, _t(buf)),
         jrc.drain_skipped(jcfg, jb))
-    with pytest.raises(NotImplementedError):
-        ratecontrol.gob_quant(ratecontrol.RateConfig(bit_rate=64000),
-                              _t(buf))
+    # the same config with rate control on follows the buffer law
+    _eq(ratecontrol.gob_quant(ratecontrol.RateConfig(bit_rate=64000),
+                              _t(buf)),
+        jrc.gob_quant(jrc.RateConfig(bit_rate=64000), jb))
 
 
 # ---------------------------------------------------------- reconstruct

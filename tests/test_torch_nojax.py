@@ -1,6 +1,7 @@
 """The PyTorch port runs where JAX is not installed (the GPU host has none):
 in a fresh interpreter whose import system refuses `jax`, the port imports
-and encodes one QCIF frame on the CPU."""
+every module, encodes QCIF at a fixed quantizer and under rate control with
+MQUANT segments, and runs the parity gate's SAD checks on the CPU."""
 
 import os
 import subprocess
@@ -32,6 +33,9 @@ import torch
 
 torch.set_num_threads(1)
 import p64tpu_torch
+from p64tpu_torch import cli
+from p64tpu_torch.kernels import me_variants, me_variants_cuda
+from p64tpu_torch.tools import parity, pinned
 from p64tpu_torch.core import encoder
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu.spec.constants import QCIF
@@ -41,6 +45,11 @@ frames = {k: v[None] for k, v in gc.config1_qcif_intra().items()}
 cfg = encoder.EncoderConfig(fmt=QCIF, rate=RateConfig(fixed_quant=12))
 data, out, _ = encoder.encode_to_bytes(cfg, frames, device="cpu")
 assert len(data) == 1 and len(data[0]) > 0
+rc = encoder.EncoderConfig(fmt=QCIF, rate=RateConfig(bit_rate=64000,
+                                                     mquant_segments=3))
+rc_data, _, _ = encoder.encode_to_bytes(rc, frames, device="cpu")
+assert len(rc_data[0]) > 0
+assert parity.check_dct("cpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not bad, bad
 print("NOJAX OK", len(data[0]))
