@@ -10,7 +10,8 @@ with a non-zero exit and no result line:
 
   1. device   -- nvidia-smi name and power limit, torch's device name
   2. build    -- nvcc-builds the kernel library, all five kernels, from
-                 p64tpu_torch/csrc/sad_search.cu
+                 p64tpu_torch/csrc/sad_search.cu, and, at the same time,
+                 g++-builds the bit-I/O engine from p64tpu/native/bitio.cpp
   3. parity   -- CIF, search 15, 4 streams, three kinds of content: the
                  SAD-search kernel's map equals the plain torch map and an
                  int64 numpy oracle; its fused (mv, best_sad, sad0) equals
@@ -24,8 +25,10 @@ with a non-zero exit and no result line:
                  on the card and the CPU; it must print PARITY PASS, and
                  each of the four SAD-map kernels must have been launched
   6. headline -- the benchmark content (128 CIF streams x 32 frames, q=10,
-                 search 15) encoded on the card; the device bit total equals
-                 the serializer's count and the JAX package's figure, and
+                 search 15) encoded on the card and serialized by the native
+                 engine, one thread per stream; the device bit total equals
+                 the serializer's count and the JAX package's figure, the
+                 first streams' bytes equal the Python serializer's, and
                  the SAD-search kernel was launched on every frame
   7. timing   -- at the headline shape, the SAD kernel's (mv, best_sad,
                  sad0) equals the plain torch map + argmin; then both are
@@ -33,6 +36,16 @@ with a non-zero exit and no result line:
   8. maps     -- at the headline shape, each SAD-map kernel's map equals
                  its plain version's; then each is timed beside its plain
                  version and beside the SAD-search kernel's map mode
+  9. decode   -- the 128 headline streams parsed (native engine, one thread
+                 per stream) and decoded on the card in one batch; every
+                 plane equals the encoder's reconstruction; parse ms,
+                 reconstruct ms and decode MB/s
+ 10. mix      -- the JAX decode benchmark's mixed content (16 CIF streams x
+                 32 frames: fixed q, stuffing-heavy and MQUANT rate control)
+                 encoded on the card, decoded on the card, held to the
+                 encoder's reconstruction, timed as phase 9
+ 11. pinsdec  -- the thirteen pinned streams decode identically on the card
+                 and on the CPU
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -55,6 +68,11 @@ HEADLINE_BITS = 29_547_313
 HEADLINE_STREAMS, HEADLINE_FRAMES, HEADLINE_QUANT = 128, 32, 10
 PARITY_STREAMS = 4
 SEARCH = 15
+#: the JAX decode benchmark's shape (bench.py measure_decode)
+MIX_STREAMS, MIX_FRAMES = 16, 32
+#: Python serializer's bytes are checked against the native engine's on
+#: this many headline streams
+ORACLE_STREAMS = 4
 #: the one kernel source, p64tpu_torch/csrc/<name>.cu
 KERNEL_LIB = "sad_search"
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
@@ -74,8 +92,10 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def bench_content(fmt, streams: int, frames_t: int):
-    """The encode benchmark's deterministic content (bench.py `measure`)."""
+def bench_content(fmt, streams: int, frames_t: int, noise: int = 5):
+    """The JAX benchmark's deterministic content (bench.py `make_content`):
+    `noise` sets the per-pixel texture amplitude, 5 for the encode
+    headline, 40 for the decode mix's rate-controlled groups."""
     import numpy as np
     rng = np.random.default_rng(0)
     h, w = fmt.height, fmt.width
@@ -88,7 +108,7 @@ def bench_content(fmt, streams: int, frames_t: int):
             x0 = (10 + 7 * t + 13 * s) % (w - 48)
             y0 = (20 + 5 * t + 7 * s) % (h - 48)
             b[y0:y0 + 48, x0:x0 + 48] += 50
-            ys[s, t] = np.clip(b + rng.integers(0, 5, (h, w)), 0, 255)
+            ys[s, t] = np.clip(b + rng.integers(0, noise, (h, w)), 0, 255)
     return dict(y=ys, cb=(ys[:, :, ::2, ::2] // 2 + 64).astype(np.uint8),
                 cr=(255 - ys[:, :, 1::2, ::2] // 2).astype(np.uint8))
 
@@ -141,18 +161,42 @@ def check_fused(kernel, plain, what: str) -> int:
     return 0
 
 
-def check_pins(dev) -> None:
+def check_pins(dev) -> dict:
     """Encode every pinned configuration on `dev` and hold it to its
-    sha256."""
+    sha256; returns name -> stream bytes."""
     from p64tpu_torch.tools import pinned
 
     want = pinned.pinned_hashes()
+    streams = {}
     for name, data in pinned.pinned_streams(dev):
         digest = hashlib.sha256(data).hexdigest()
         if digest != want[name]:
             raise AssertionError(f"pin {name}: sha256 {digest} != pinned "
                                  f"{want[name]}")
         log(f"[pins] {name}: {len(data)} bytes, sha256 matches")
+        streams[name] = data
+    return streams
+
+
+def build_all() -> None:
+    """Build the kernel library (nvcc) and the bit-I/O engine (g++) at the
+    same time, one compiler process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from p64tpu_torch.kernels import _build
+    from p64tpu_torch.native import load
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kernels = pool.submit(timed, lambda: _build.load(KERNEL_LIB))
+        native = pool.submit(timed, load)
+        log(f"[build] {KERNEL_LIB}.cu built and loaded in "
+            f"{kernels.result():.2f} s; bit-I/O engine (bitio.cpp) in "
+            f"{native.result():.2f} s")
 
 
 def gate() -> dict:
@@ -216,16 +260,17 @@ def map_kernels(cur, ref, card: str) -> dict:
     return out
 
 
-def headline(dev, dev_frames, card: str) -> int:
-    """Encode the benchmark content on `dev` through the port's main path,
-    check it, print the device wall time; returns the SAD kernel launches
-    counted during the encode."""
+def headline(dev, dev_frames, card: str):
+    """Encode the benchmark content on `dev` through the port's main path
+    and serialize it, check both, print the device wall time and the
+    serialize time; returns (SAD kernel launches counted during the
+    encode, the encoder outputs, the stream bytes)."""
     import torch
 
     from p64tpu.spec.constants import CIF
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.core import encoder as enc
-    from p64tpu_torch.entropy.encode import serialize_sequence
+    from p64tpu_torch.entropy.encode import serialize_sequence_py
     from p64tpu_torch.kernels import me_cuda
 
     n_streams, n_frames = dev_frames["y"].shape[:2]
@@ -244,9 +289,18 @@ def headline(dev, dev_frames, card: str) -> int:
     launches = me_cuda.LAUNCHES
 
     t0 = time.perf_counter()
-    streams = enc.outputs_to_symbols(cfg, outputs)
-    ser_bits = sum(serialize_sequence(CIF, syms)[1] for syms in streams)
+    serialized = enc.serialize_streams(cfg, outputs)
     t_ser = time.perf_counter() - t0
+    ser_bits = sum(nbits for _, nbits in serialized)
+    datas = [b for b, _ in serialized]
+    t0 = time.perf_counter()
+    head = enc.outputs_to_symbols(
+        cfg, {k: v[:ORACLE_STREAMS] for k, v in outputs.items()})
+    for si, syms in enumerate(head):
+        if serialize_sequence_py(CIF, syms)[0] != datas[si]:
+            raise AssertionError(f"stream {si}: native serializer bytes != "
+                                 "Python serializer bytes")
+    t_py = time.perf_counter() - t0
     want = (n_streams, n_frames, CIF.num_mbs, 6, 64)
     if tuple(outputs["levels8"].shape) != want:
         raise AssertionError(f"levels8 shape {tuple(outputs['levels8'].shape)}"
@@ -267,9 +321,125 @@ def headline(dev, dev_frames, card: str) -> int:
         f"s={SEARCH}: device encode {t_dev * 1e3:.1f} ms wall = "
         f"{n_mb / t_dev:.0f} MB/s on {card}; total bits {device_bits} == "
         f"serializer == JAX figure; mean Y PSNR "
-        f"{psnr:.2f} dB; host serialize {t_ser:.1f} s; sad_search launches "
-        f"{launches}")
-    return launches
+        f"{psnr:.2f} dB; sad_search launches {launches}")
+    log(f"[headline] native serialize of {n_streams} streams, one thread "
+        f"each: {t_ser:.3f} s; first {ORACLE_STREAMS} streams' bytes == "
+        f"Python serializer's ({t_py:.3f} s for those {ORACLE_STREAMS})")
+    return launches, outputs, datas
+
+
+def decode_mix(dev, streams: int, frames_t: int):
+    """Encode the JAX decode benchmark's mixed content (bench.py
+    `_make_decode_content`) with the port on `dev`, search 15: half the
+    streams at a fixed quantizer, one in 16 at 4 Mbit/s (mostly MBA
+    stuffing fill), the rest at 2 Mbit/s with mid-GOB MQUANT segments;
+    texture noise 5 for the first group, 40 for the others.  Every frame
+    must be coded, and the mix must hold stuffing and MQUANT MBs.
+    Returns (stream bytes, recon planes (y, cb, cr) as (S, T, ...)
+    tensors on dev, stuffing codes, MQUANT MBs)."""
+    import numpy as np
+    import torch
+
+    from p64tpu.spec.constants import CIF
+    from p64tpu.spec.luts import MTYPE_MQUANT
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.core import encoder as enc
+
+    datas, recons, n_stuff, n_mq = [], [], 0, 0
+    mq_types = torch.as_tensor(np.flatnonzero(MTYPE_MQUANT), device=dev)
+    n_a = streams // 2
+    n_b = max(1, streams // 16)
+    groups = ((n_a, dict(fixed_quant=HEADLINE_QUANT), 5),
+              (n_b, dict(bit_rate=4_000_000, frame_rate=30), 40),
+              (streams - n_a - n_b,
+               dict(bit_rate=2_000_000, frame_rate=30, mquant_segments=3,
+                    initial_quant=12), 40))
+    for n, rate, noise in groups:
+        cfg = enc.EncoderConfig(fmt=CIF, search=SEARCH,
+                                rate=RateConfig(**rate))
+        data, outputs, _ = enc.encode_to_bytes(
+            cfg, bench_content(CIF, n, frames_t, noise), device=dev)
+        if not bool(outputs["frame_coded"].all()):
+            raise AssertionError(f"decode mix group {rate} skipped frames")
+        n_stuff += int(outputs["n_stuff"].sum())
+        n_mq += int(torch.isin(outputs["mtype"], mq_types).sum())
+        datas.extend(data)
+        recons.append([outputs[k] for k in ("recon_y", "recon_cb",
+                                            "recon_cr")])
+    if n_stuff == 0 or n_mq == 0:
+        raise AssertionError(f"decode mix holds {n_stuff} stuffing codes and "
+                             f"{n_mq} MQUANT MBs; both must be present")
+    return (datas, tuple(torch.cat(p) for p in zip(*recons)), n_stuff,
+            n_mq)
+
+
+def decode_check(what: str, datas, recon, dev, card: str) -> dict:
+    """Parse `datas` (native engine, one thread per stream) and decode
+    them on `dev` in one batch; every plane must equal `recon` ((y, cb,
+    cr) (S, T, ...) tensors).  Prints and returns the parse, decode and
+    reconstruct times and the end-to-end MB/s."""
+    import numpy as np
+    import torch
+
+    from p64tpu_torch.core import decoder
+    from p64tpu_torch.native import load
+    from p64tpu_torch.utils import fan_map
+
+    load()
+    t0 = time.perf_counter()
+    parsed = fan_map(decoder.parse_to_tensors, datas)
+    t_parse = time.perf_counter() - t0
+    fmt = parsed[0][0]
+    seqs = [seq for _, _, seq in parsed]
+    t0 = time.perf_counter()
+    planes = decoder.decode_seq_batch(fmt, seqs, device=dev)
+    t_dec = time.perf_counter() - t0
+    for i, p in enumerate(planes):
+        for name, got, want in zip(("y", "cb", "cr"), p, recon):
+            if not np.array_equal(got, want[i].cpu().numpy()):
+                raise AssertionError(f"[{what}] stream {i}: decoded {name} "
+                                     "!= encoder reconstruction")
+    # the decode's parts: host stack + one copy to the card, then the
+    # frame loop on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = decoder.stack_seqs(fmt, seqs, dev)
+    torch.cuda.synchronize()
+    t_stack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev_planes = decoder.reconstruct_seq(fmt, batch)
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(dev_planes, recon)):
+        raise AssertionError(f"[{what}] reconstruct_seq planes != encoder "
+                             "reconstruction")
+    s, t = recon[0].shape[:2]
+    n_mb = s * t * fmt.num_mbs
+    rate = n_mb / (t_parse + t_dec)
+    log(f"[{what}] {s}x{t} {fmt.name}: decoded planes == encoder recon; "
+        f"parse {t_parse * 1e3:.1f} ms ({sum(map(len, datas))} bytes), "
+        f"decode_seq_batch {t_dec * 1e3:.1f} ms (stack + copy to card "
+        f"{t_stack * 1e3:.1f} ms, reconstruct {t_rec * 1e3:.1f} ms), "
+        f"parse + decode {rate:.0f} MB/s on {card}")
+    return dict(parse_ms=t_parse * 1e3, decode_ms=t_dec * 1e3,
+                reconstruct_ms=t_rec * 1e3, mb_per_s=rate)
+
+
+def pins_decoded(pins: dict, dev) -> None:
+    """Each pinned stream decodes to the same planes on `dev` and on the
+    CPU through the port."""
+    import numpy as np
+
+    from p64tpu_torch.core.decoder import decode_stream
+
+    for name, data in pins.items():
+        on_card = decode_stream(data, device=dev)
+        on_cpu = decode_stream(data, device="cpu")
+        for got, want in zip(on_card[:3], on_cpu[:3]):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"pin {name}: card decode != CPU decode")
+        log(f"[pinsdec] {name}: {on_card[0].shape[0]} frames, card decode "
+            "== CPU decode")
 
 
 def main() -> int:
@@ -287,7 +457,7 @@ def main() -> int:
     import numpy as np
 
     from p64tpu.spec.constants import CIF
-    from p64tpu_torch.kernels import _build, me, me_cuda
+    from p64tpu_torch.kernels import me, me_cuda
     from p64tpu_torch.tools.parity import sad_oracle
 
     dev = torch.device("cuda", 0)
@@ -299,10 +469,7 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build
-    t0 = time.perf_counter()
-    _build.load(KERNEL_LIB)
-    log(f"[build] {KERNEL_LIB}.cu built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    build_all()
 
     # 3. SAD parity at CIF
     max_err = 0
@@ -334,7 +501,7 @@ def main() -> int:
             f"== plain full search ({n_ties} MBs with tied minima)")
 
     # 4. pins
-    check_pins(dev)
+    pins = check_pins(dev)
 
     # 5. the parity gate, with its kernels' launches counted
     map_launches = gate()
@@ -342,7 +509,7 @@ def main() -> int:
     # 6. headline shape
     frames = bench_content(CIF, HEADLINE_STREAMS, HEADLINE_FRAMES)
     dev_frames = {k: torch.as_tensor(v, device=dev) for k, v in frames.items()}
-    launches = headline(dev, dev_frames, card)
+    launches, outputs, datas = headline(dev, dev_frames, card)
     if launches < HEADLINE_FRAMES:
         raise AssertionError(f"SAD kernel launched {launches} times in the "
                              f"headline encode, expected >= "
@@ -372,6 +539,19 @@ def main() -> int:
 
     # 8. the SAD-map kernels at the headline shape
     maps = map_kernels(cur, ref, card)
+
+    # 9. decode the headline streams on the card
+    decode_check("decode", datas, tuple(outputs[k] for k in (
+        "recon_y", "recon_cb", "recon_cr")), dev, card)
+
+    # 10. the decode benchmark's mix, encoded and decoded on the card
+    mix, mix_recon, n_stuff, n_mq = decode_mix(dev, MIX_STREAMS, MIX_FRAMES)
+    log(f"[mix] {len(mix)} CIF streams x {MIX_FRAMES} frames encoded: "
+        f"{n_stuff} stuffing codes, {n_mq} MQUANT MBs")
+    decode_check("mix", mix, mix_recon, dev, card)
+
+    # 11. the pins decoded on the card and on the CPU
+    pins_decoded(pins, dev)
 
     log(card)
     kernels = [{

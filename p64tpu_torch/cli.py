@@ -1,12 +1,14 @@
-"""Command-line encoder of the PyTorch port, mirroring `p64tpu/cli.py`.
+"""Command-line encoder/decoder of the PyTorch port, mirroring
+`p64tpu/cli.py`.
 
 Examples:
-  python -m p64tpu_torch -s out.p64 -q 10 input.y4m
-  python -m p64tpu_torch -s out.p64 -q 8 -x QCIF -v input.yuv
-  python -m p64tpu_torch -s out.p64 -x QCIF -r 256000 input.yuv
-  python -m p64tpu_torch -s out.p64 -r 1024000 -m 3 --device cpu input.y4m
-
-Only the encoder is ported: decode (-d) and resync (-e) exit with status 2.
+  encode: python -m p64tpu_torch -s out.p64 -q 10 input.y4m
+          python -m p64tpu_torch -s out.p64 -q 8 -x QCIF -v input.yuv
+          python -m p64tpu_torch -s out.p64 -x QCIF -r 256000 input.yuv
+          python -m p64tpu_torch -s out.p64 -r 1024000 -m 3 --device cpu \
+              input.y4m
+  decode: python -m p64tpu_torch -d -s in.p64 -o out.y4m [--device cpu]
+          python -m p64tpu_torch -d -e -s damaged.p64 -o out.y4m
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ from p64tpu.spec.constants import DEFAULT_SEARCH_RANGE
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="p64tpu_torch",
-        description="H.261 (p x 64) encoder, PyTorch/CUDA port")
+        description="H.261 (p x 64) encoder/decoder, PyTorch/CUDA port")
     p.add_argument("-d", "--decode", action="store_true",
-                   help="decode mode (not yet ported)")
+                   help="decode mode (default: encode)")
     p.add_argument("-s", "--stream", required=True,
-                   help="H.261 stream file to write")
+                   help="H.261 stream file (encode: output, decode: input)")
+    p.add_argument("-o", "--output",
+                   help="decode output (.y4m, .yuv, or PVRG prefix)")
     p.add_argument("-q", "--quant", type=int, default=8,
                    help="fixed quantizer 1..31 (default 8)")
     p.add_argument("-r", "--rate", type=int, default=0,
@@ -52,26 +56,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", "--no-filter", action="store_true",
                    help="disable the H.261 loop filter (no FIL MTYPEs)")
     p.add_argument("-e", "--resync", action="store_true",
-                   help="decode with start-code resync (not yet ported)")
+                   help="decode with start-code error recovery: damaged "
+                        "GOBs/pictures are concealed and decoding "
+                        "continues at the next PSC/GBSC (default: strict, "
+                        "fail on the first invalid code)")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="per-frame statistics")
     p.add_argument("--device", default="cuda",
-                   help="torch device to encode on (default cuda)")
+                   help="torch device to encode or decode on "
+                        "(default cuda)")
     p.add_argument("input", nargs="?",
-                   help="input: .y4m, raw .yuv, or PVRG prefix")
+                   help="encode input: .y4m, raw .yuv, or PVRG prefix; "
+                        "decode: optional source for PSNR reporting")
     return p
 
 
-def _not_ported(args) -> Optional[str]:
-    if args.decode:
-        return "decode (-d)"
-    if args.resync:
-        return "resync (-e)"
-    return None
-
-
 def _validate(args) -> Optional[str]:
-    if not 1 <= args.quant <= 31:
+    if not args.decode and not 1 <= args.quant <= 31:
         return f"-q/--quant must be 1..31 (got {args.quant})"
     if not 0 <= args.search <= DEFAULT_SEARCH_RANGE:
         return (f"-i/--search must be 0..{DEFAULT_SEARCH_RANGE} "
@@ -92,17 +93,27 @@ def _validate(args) -> Optional[str]:
     return None
 
 
-def run_encode(args) -> int:
+def _device(args):
+    """The --device as a torch.device, or None (after saying why) when it
+    names CUDA and no card is present."""
     import torch
 
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        what = "decode" if args.decode else "encode"
+        print(f"p64tpu_torch: no CUDA device is available; pass --device cpu "
+              f"to {what} on the CPU", file=sys.stderr)
+        return None
+    return device
+
+
+def run_encode(args) -> int:
     from .control.decisions import DecisionConfig
     from .control.ratecontrol import RateConfig
     from .core.encoder import EncoderConfig, encode_to_bytes
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("p64tpu_torch: no CUDA device is available; pass --device cpu "
-              "to encode on the CPU", file=sys.stderr)
+    device = _device(args)
+    if device is None:
         return 2
     fmt = yuv.parse_format(args.format) if args.format else None
     frames, fmt = yuv.load_input(args.input, fmt, args.first, args.last)
@@ -138,21 +149,78 @@ def run_encode(args) -> int:
     return 0
 
 
+def run_decode(args) -> int:
+    from .core.decoder import decode_stream
+    from .entropy.parse import StreamError
+
+    device = _device(args)
+    if device is None:
+        return 2
+    with open(args.stream, "rb") as f:
+        data = f.read()
+    try:
+        y, cb, cr, parsed = decode_stream(data, resync=args.resync,
+                                          device=device)
+    except StreamError as e:
+        print(f"p64tpu_torch: invalid H.261 stream: {e}", file=sys.stderr)
+        return 1
+    except ValueError as e:
+        # resync mode never raises StreamError; a stream with no start
+        # code at all yields zero frames
+        print(f"p64tpu_torch: {e}", file=sys.stderr)
+        return 1
+    n_damaged = sum(bool(p.damaged) for p in parsed)
+    if n_damaged:
+        print(f"p64tpu_torch: {n_damaged}/{len(parsed)} damaged pictures "
+              f"concealed (resync)", file=sys.stderr)
+    frames = dict(y=y, cb=cb, cr=cr)
+    out = args.output
+    fmt = parsed[0].fmt
+    if not out:
+        print(f"decoded {len(parsed)} frames ({fmt.name}); no -o given, "
+              "not writing", flush=True)
+        return 0
+    if out.endswith(".y4m"):
+        yuv.write_y4m(out, frames, (args.frame_rate, 1))
+    elif out.endswith((".yuv", ".i420", ".raw")):
+        yuv.write_raw(out, frames)
+    else:
+        yuv.write_pvrg(out, frames, args.first)
+    if args.input:
+        # decode-mode PSNR against the original source
+        src, sfmt = yuv.load_input(args.input, fmt, args.first, args.last)
+        if sfmt is not fmt:
+            print(f"p64tpu_torch: source is {sfmt.name}, stream is "
+                  f"{fmt.name}", file=sys.stderr)
+            return 1
+        n = min(len(parsed), src["y"].shape[0])
+        for i in range(n):
+            print(stats.frame_report(
+                i, True, 0, dict(y=y[i], cb=cb[i], cr=cr[i]),
+                {k: src[k][i] for k in ("y", "cb", "cr")}))
+        print(f"sequence Y PSNR {stats.psnr(y[:n], src['y'][:n]):.2f} dB "
+              f"over {n} frames")
+    if args.verbose:
+        for i, p in enumerate(parsed):
+            print(f"frame {i:4d}: TR {p.tr:2d} {p.fmt.name} "
+                  f"coded MBs {int(p.coded.sum())}/{p.fmt.num_mbs} "
+                  f"intra {int((p.intra & p.coded).sum())}")
+    print(f"decoded {len(parsed)} frames to {out}")
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        print(f"p64tpu_torch: {missing} is not yet ported; use the JAX "
-              "package (python -m p64tpu)", file=sys.stderr)
-        return 2
     err = _validate(args)
     if err:
         print(f"p64tpu_torch: {err}", file=sys.stderr)
         return 2
-    if not args.input:
-        print("encode mode needs an input", file=sys.stderr)
-        return 1
     try:
+        if args.decode:
+            return run_decode(args)
+        if not args.input:
+            print("encode mode needs an input", file=sys.stderr)
+            return 1
         return run_encode(args)
     except (ValueError, FileNotFoundError) as e:
         print(f"p64tpu_torch: {e}", file=sys.stderr)

@@ -22,8 +22,9 @@ and a skipped stream takes the skip picture's state and outputs instead.
 
 The frame loop is a host `for` loop carrying the state (the reference's
 `lax.scan`); the stream axis is explicit (the reference's `vmap`).  The
-host then serializes each stream (entropy.encode) and asserts that it
-emitted exactly the device's bit count.
+host then serializes the streams through the C++ engine, one thread per
+stream (entropy.encode, utils.fan_map), and asserts that each emitted
+exactly the device's bit count.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ from ..entropy.encode import FrameSymbols, serialize_sequence
 from ..kernels.dct import fdct8x8_zz
 from ..kernels.me import full_search
 from ..kernels.quant import quantize_zz
-from ..utils import device_const
+from ..native import load
+from ..utils import device_const, fan_map
 from .blocks import (
     assemble_blocks,
     assemble_mb_blocks,
@@ -573,6 +575,18 @@ def outputs_to_symbols(cfg: EncoderConfig,
     return streams
 
 
+def serialize_streams(cfg: EncoderConfig,
+                      outputs: Mapping[str, torch.Tensor]
+                      ) -> List[Tuple[bytes, int]]:
+    """Host finalize of a multi-stream batch: per stream, (bytes, nbits)
+    from the native serializer, fanned across threads (the ctypes engine
+    releases the GIL), as the reference's `distrib.mesh.serialize_streams`
+    does."""
+    load()   # build/load the engine once before fanning out
+    return fan_map(lambda syms: serialize_sequence(cfg.fmt, syms),
+                   outputs_to_symbols(cfg, outputs))
+
+
 def encode_to_bytes(cfg: EncoderConfig, frames: Mapping[str, object],
                     state: Optional[State] = None, *,
                     device: torch.device | str
@@ -585,8 +599,7 @@ def encode_to_bytes(cfg: EncoderConfig, frames: Mapping[str, object],
     final_state, outputs = encode_sequence(cfg, frames, state, device=device)
     predicted = outputs["total_bits"].sum(dim=1).tolist()
     data = []
-    for si, syms in enumerate(outputs_to_symbols(cfg, outputs)):
-        b, nbits = serialize_sequence(cfg.fmt, syms)
+    for si, (b, nbits) in enumerate(serialize_streams(cfg, outputs)):
         if nbits != predicted[si]:
             raise AssertionError(
                 f"stream {si}: serializer produced {nbits} bits, device "

@@ -1,12 +1,14 @@
 """Host-side bitstream serializer: per-frame symbol arrays -> H.261 bits.
 
-Port of the pure-Python serializer in `p64tpu/entropy/encode.py` (the
-reference module imports JAX through `core.blocks`).  It walks the symbol
-arrays in GOB/MBA transmission order and packs VLCs with
-`p64tpu.entropy.bitio.BitWriter`.  It MUST emit exactly the number of bits
-the device length model (`entropy.lengths`) predicts; the encoder asserts
-that on every encode.  The per-frame arrays are turned into Python lists
-once, which keeps the walk free of numpy scalar indexing.
+Port of `p64tpu/entropy/encode.py` (the reference module imports JAX
+through `core.blocks`).  `serialize_sequence` packs through the C++ engine
+(`native.binding`); `serialize_sequence_py` is the pure-Python oracle it is
+held to, which walks the symbol arrays in GOB/MBA transmission order and
+packs VLCs with `p64tpu.entropy.bitio.BitWriter`.  Both MUST emit exactly
+the number of bits the device length model (`entropy.lengths`) predicts;
+the encoder asserts that on every encode.  The oracle turns the per-frame
+arrays into Python lists once, which keeps the walk free of numpy scalar
+indexing.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from p64tpu.spec.constants import (
 )
 
 from ..core.blocks import transmission_order
+from ..native import load
 
 
 @dataclasses.dataclass
@@ -208,12 +211,19 @@ def serialize_frame(fmt: Format, sym: FrameSymbols, sink: BitWriter) -> None:
         sink.put(luts.MBA_STUFFING_CODE, luts.MBA_STUFFING_LEN)
 
 
-def serialize_sequence(fmt: Format,
-                       frames: Sequence[FrameSymbols]) -> Tuple[bytes, int]:
-    """Pack a whole sequence; returns (bytes, total_bits), zero-padded to a
-    byte boundary at the very end only."""
+def serialize_sequence_py(fmt: Format,
+                          frames: Sequence[FrameSymbols]
+                          ) -> Tuple[bytes, int]:
+    """Pure-Python serializer (the oracle serialize_sequence must match)."""
     sink = BitWriter()
     for sym in frames:
         serialize_frame(fmt, sym, sink)
     return sink.getvalue(), sink.nbits
+
+
+def serialize_sequence(fmt: Format,
+                       frames: Sequence[FrameSymbols]) -> Tuple[bytes, int]:
+    """Pack a whole sequence through the C++ engine; returns (bytes,
+    total_bits), zero-padded to a byte boundary at the very end only."""
+    return load().serialize(fmt, list(frames))
 

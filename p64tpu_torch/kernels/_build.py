@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native code and load it with ctypes.
 
 Each `csrc/*.cu` file is compiled on first use into a shared library with a
 plain C interface:
@@ -6,8 +6,15 @@ plain C interface:
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
        -Xcompiler -fPIC -o build/kernels/<name>.so csrc/<name>.cu
 
+The host bit-I/O engine is the JAX package's C++ source, compiled in place
+(never copied, so it stays the one source of the byte contract) with the
+flags of its Makefile:
+
+  g++ -O3 -Wall -Wextra -fPIC -std=c++17 -shared
+      -o build/native/libp64bitio.so p64tpu/native/bitio.cpp
+
 The build directory (`build/` at the repository root) is git-ignored; a
-library is rebuilt when its source is newer.  A missing nvcc or a failed
+library is rebuilt when its source is newer.  A missing compiler or a failed
 compile raises -- there is no fallback.  Nothing here runs at import time.
 """
 
@@ -18,14 +25,22 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: where the CUDA toolkit puts nvcc when neither CUDA_HOME nor PATH says
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+#: the bit-I/O engine's source (the JAX package's) and its library
+NATIVE_SOURCE = os.path.join(_REPO, "p64tpu", "native", "bitio.cpp")
+NATIVE_BUILD_DIR = os.path.join(_REPO, "build", "native")
+NATIVE_LIB = "libp64bitio.so"
+#: `p64tpu/native/Makefile`'s CXXFLAGS plus -shared
+CXX_FLAGS = ["-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -47,37 +62,66 @@ def find_nvcc() -> str:
         ": the CUDA kernels cannot be built")
 
 
+def find_cxx() -> str:
+    """Path of the C++ compiler: $CXX if set, else g++ on PATH."""
+    cxx = shutil.which(os.environ.get("CXX") or "g++")
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found (looked at $CXX and PATH): the native bit-I/O "
+            "engine cannot be built")
+    return cxx
+
+
 def nvcc_command(nvcc: str, source: str, out: str) -> List[str]:
     return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-o", out, source]
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu if its library is missing or stale; returns
-    the library path."""
-    source = os.path.join(CSRC, name + ".cu")
-    out = os.path.join(BUILD_DIR, name + ".so")
+def cxx_command(cxx: str, source: str, out: str) -> List[str]:
+    return [cxx, *CXX_FLAGS, "-o", out, source]
+
+
+def _compile(source: str, out: str, find: Callable[[], str],
+             command: Callable[[str, str, str], List[str]]) -> str:
+    """Compile source into out if out is missing or older than source;
+    returns out."""
     if (os.path.exists(out)
             and os.path.getmtime(out) >= os.path.getmtime(source)):
         return out
-    nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    tool = find()
+    build_dir = os.path.dirname(out)
+    os.makedirs(build_dir, exist_ok=True)
     # compile to a private name, then rename: concurrent builds never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     try:
-        r = subprocess.run(nvcc_command(nvcc, source, tmp),
+        r = subprocess.run(command(tool, source, tmp),
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {source} (exit {r.returncode}):\n"
-                f"{r.stdout}{r.stderr}")
+                f"{os.path.basename(tool)} failed on {source} (exit "
+                f"{r.returncode}):\n{r.stdout}{r.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu if its library is missing or stale; returns
+    the library path."""
+    return _compile(os.path.join(CSRC, name + ".cu"),
+                    os.path.join(BUILD_DIR, name + ".so"), find_nvcc,
+                    nvcc_command)
+
+
+def build_native() -> str:
+    """Compile the bit-I/O engine if its library is missing or stale;
+    returns the library path (under NATIVE_BUILD_DIR, never p64tpu/)."""
+    return _compile(NATIVE_SOURCE, os.path.join(NATIVE_BUILD_DIR, NATIVE_LIB),
+                    find_cxx, cxx_command)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain torch versions, on the card: the
-SAD-search kernel and the four SAD-map kernels.
+SAD-search kernel and the four SAD-map kernels; and the decoder on the
+card against its CPU decode and the encoder's reconstruction.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they also run on a GPU host without it:
@@ -12,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from p64tpu.tools import golden_content as gc
+from p64tpu_torch.core import decoder, encoder
 from p64tpu_torch.kernels import me, me_cuda, me_variants, me_variants_cuda
+from p64tpu_torch.tools import pinned
 
 torch.set_num_threads(1)
 
@@ -113,3 +117,31 @@ def test_map_kernels_refuse_what_they_do_not_take(cuda):
     wide = torch.zeros((1, 16, 368), dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="sad_map_rp kernel launch failed"):
         me_variants_cuda.sad_map_rp_cuda(wide, wide, 4)
+
+
+@pytest.mark.cuda
+def test_pin_decodes_on_the_card_as_on_the_cpu(cuda):
+    cfg, frames = pinned.pinned_case("config2_qcif_inter_q12_s15")
+    data = encoder.encode_to_bytes(cfg, frames, device=cuda)[0][0]
+    on_card = decoder.decode_stream(data, device=cuda)
+    on_cpu = decoder.decode_stream(data, device="cpu")
+    for a, b in zip(on_card[:3], on_cpu[:3]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decode_seq_batch_on_the_card_equals_encoder_recon(cuda):
+    from p64tpu.spec.constants import CIF
+    from p64tpu_torch.control.ratecontrol import RateConfig
+
+    one = gc.config3_cif_rc(3)
+    frames = {k: np.stack([v, np.roll(v, 5, axis=-1)]) for k, v in
+              one.items()}
+    cfg = encoder.EncoderConfig(fmt=CIF, search=15,
+                                rate=RateConfig(fixed_quant=10))
+    datas, out, _ = encoder.encode_to_bytes(cfg, frames, device=cuda)
+    seqs = [decoder.parse_to_tensors(d)[2] for d in datas]
+    for i, planes in enumerate(decoder.decode_seq_batch(CIF, seqs,
+                                                        device=cuda)):
+        for got, key in zip(planes, encoder.RECON_KEYS):
+            np.testing.assert_array_equal(got, out[key][i].cpu().numpy())
