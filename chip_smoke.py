@@ -46,18 +46,45 @@ with a non-zero exit and no result line:
                  encoder's reconstruction, timed as phase 9
  11. pinsdec  -- the thirteen pinned streams decode identically on the card
                  and on the CPU
+ 12. batch    -- the headline frames through the resilient batch encoder
+                 (tools.batch_encode.encode_resilient) on the card, in
+                 pipelined 32-stream chunks: every stream's bytes equal
+                 phase 6's, also when chunk 2's first dispatch fails; the
+                 SAD-search kernel is launched on every frame of every
+                 chunk; chunk=0 and chunk=32 timed on the wall clock in
+                 turns; then the batch_encode CLI on a few .y4m files
+                 equals encode_to_bytes
+ 13. checkpoint -- the headline's first 16 frames encoded and checkpointed
+                 (io.checkpoint), loaded onto the card, the last 16 encoded
+                 from it: every output equals phase 6's frames 16-31 and
+                 the halves' bits sum to phase 6's
+ 14. multihost -- two processes over torch.distributed (gloo), both on
+                 this card, each encoding 64 of the 128 headline streams
+                 (distrib.multihost): both see the all-reduced bit total,
+                 the all-gathered lengths and their bytes equal phase 6's;
+                 then one NCCL process (world size 1) on a small batch
+ 15. profile  -- tools.profile on the card with a trace: exit 0, a Chrome
+                 trace and the table of operators by self CUDA time
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --multihost-worker '{"backend": ...}'
+
+runs one worker of phase 14; the phase starts them itself.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -79,6 +106,15 @@ KERNEL_LIB = "sad_search"
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
                "sad_map_swar": 413}
+#: streams per pipelined chunk of the batch phase, and how many of the
+#: headline streams go through the batch_encode CLI
+BATCH_CHUNK, CLI_STREAMS = 32, 3
+#: processes of the gloo run, and the NCCL run's batch (streams, frames)
+GLOO_WORLD, NCCL_BATCH = 2, (8, 4)
+#: seconds a phase-14 worker may take before every worker is killed
+WORKER_TIMEOUT = 300
+#: the profile phase's batch (streams, frames)
+PROFILE_BATCH = (8, 4)
 
 
 def log(msg: str) -> None:
@@ -442,8 +478,370 @@ def pins_decoded(pins: dict, dev) -> None:
             "== CPU decode")
 
 
+def headline_cfg(emit_recon: bool = True):
+    from p64tpu.spec.constants import CIF
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.core import encoder as enc
+
+    return enc.EncoderConfig(fmt=CIF, search=SEARCH, emit_recon=emit_recon,
+                             rate=RateConfig(fixed_quant=HEADLINE_QUANT))
+
+
+def batch_phase(dev, frames, datas, card: str) -> int:
+    """Phase 12: the headline through encode_resilient on `dev`, chunked
+    and one-shot, with and without an injected fault; then the CLI.
+    Returns the SAD-search launches of the first chunked run."""
+    import torch
+
+    from p64tpu.io import yuv
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.distrib import mesh as dm
+    from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.tools import batch_encode
+
+    cfg = headline_cfg(emit_recon=False)
+    mesh = dm.make_mesh(devices=[dev])
+    dispatch, collect = batch_encode._dispatch_shard, batch_encode._collect
+    split = {}
+
+    def timed_dispatch(*a):
+        t0 = time.perf_counter()
+        try:
+            return dispatch(*a)
+        finally:
+            split["dispatch"] += time.perf_counter() - t0
+
+    def timed_collect(cfg_, pending):
+        t0 = time.perf_counter()
+        for _, event in pending:
+            event.synchronize()
+        t1 = time.perf_counter()
+        try:
+            return collect(cfg_, pending)
+        finally:
+            split["wait"] += t1 - t0
+            split["serialize"] += time.perf_counter() - t1
+
+    def run(chunk: int, fail_hook=None) -> float:
+        split.update(dispatch=0.0, wait=0.0, serialize=0.0)
+        batch_encode._dispatch_shard = timed_dispatch
+        batch_encode._collect = timed_collect
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            got = batch_encode.encode_resilient(
+                cfg, frames, mesh, chunk=chunk, fail_hook=fail_hook,
+                log=lambda m: log(f"[batch] {m}"))
+        finally:
+            batch_encode._dispatch_shard = dispatch
+            batch_encode._collect = collect
+        wall = time.perf_counter() - t0
+        lost = [i for i, g in enumerate(got) if g is None]
+        if lost:
+            raise AssertionError(f"batch chunk={chunk}: streams {lost} "
+                                 "failed")
+        if [b for b, _ in got] != datas:
+            bad = [i for i, (g, d) in enumerate(zip(got, datas)) if g[0] != d]
+            raise AssertionError(f"batch chunk={chunk}: bytes of streams "
+                                 f"{bad[:8]} differ from phase 6's")
+        bits = sum(n for _, n in got)
+        if bits != HEADLINE_BITS:
+            raise AssertionError(f"batch chunk={chunk}: {bits} bits != "
+                                 f"{HEADLINE_BITS}")
+        log(f"[batch] chunk={chunk}{' with a fault' if fail_hook else ''}: "
+            f"{len(got)} streams == phase 6 bytes, {bits} bits; wall "
+            f"{wall:.3f} s (dispatch {split['dispatch']:.3f} s, event wait "
+            f"{split['wait']:.3f} s, serialize {split['serialize']:.3f} s) "
+            f"on {card}")
+        return wall
+
+    n_streams, n_frames = frames["y"].shape[:2]
+    me_cuda.LAUNCHES = 0
+    chunked = [run(BATCH_CHUNK)]
+    launches = me_cuda.LAUNCHES
+    want = -(-n_streams // BATCH_CHUNK) * n_frames
+    if launches < want:
+        raise AssertionError(f"batch: SAD kernel launched {launches} times, "
+                             f"expected >= {want}")
+    attempts = []
+
+    def fail_chunk2(s, e, att):
+        attempts.append((s, e, att))
+        if s == 2 * BATCH_CHUNK and att == 0:
+            raise RuntimeError("injected fault on chunk 2's first dispatch")
+
+    run(BATCH_CHUNK, fail_chunk2)
+    if (2 * BATCH_CHUNK, 3 * BATCH_CHUNK, 1) not in attempts:
+        raise AssertionError(f"batch: chunk 2 was not retried: {attempts}")
+    one_shot = [run(0), run(0)]
+    chunked.append(run(BATCH_CHUNK))
+    log(f"[batch] chunk=0 {min(one_shot):.3f}/{max(one_shot):.3f} s, "
+        f"chunk={BATCH_CHUNK} {min(chunked):.3f}/{max(chunked):.3f} s "
+        f"(best/worst of 2, in turns) on {card}; sad_search launches "
+        f"{launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(CLI_STREAMS):
+            paths.append(os.path.join(tmp, f"s{i}.y4m"))
+            yuv.write_y4m(paths[-1], {k: v[i] for k, v in frames.items()},
+                          (30, 1))
+        outdir = os.path.join(tmp, "out")
+        r = subprocess.run(
+            [sys.executable, "-m", "p64tpu_torch.tools.batch_encode", "-o",
+             outdir, "-q", str(HEADLINE_QUANT), "-i", str(SEARCH),
+             "--chunk", "2", "--device", "cuda", *paths], cwd=HERE,
+            capture_output=True, text=True, timeout=WORKER_TIMEOUT)
+        if r.returncode != 0:
+            raise AssertionError(f"batch_encode CLI exit {r.returncode}:\n"
+                                 f"{r.stdout}{r.stderr}")
+        want_bytes = enc.encode_to_bytes(
+            cfg, {k: v[:CLI_STREAMS] for k, v in frames.items()},
+            device=dev)[0]
+        for i, data in enumerate(want_bytes):
+            with open(os.path.join(outdir, f"s{i}.p64"), "rb") as f:
+                if f.read() != data:
+                    raise AssertionError(f"batch_encode CLI: s{i}.p64 != "
+                                         "encode_to_bytes")
+    log(f"[batch] CLI on {CLI_STREAMS} .y4m files: .p64 == encode_to_bytes; "
+        f"{r.stdout.strip()}")
+    return launches
+
+
+def checkpoint_phase(dev, dev_frames, outputs, card: str) -> int:
+    """Phase 13: encode the first half of the headline, checkpoint it,
+    load it onto `dev` and encode the second half from it; returns the
+    SAD-search launches of the resumed half."""
+    import torch
+
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.io import checkpoint
+    from p64tpu_torch.kernels import me_cuda
+
+    cfg = headline_cfg()
+    half = dev_frames["y"].shape[1] // 2
+    st1, out1 = enc.encode_sequence(
+        cfg, {k: v[:, :half] for k, v in dev_frames.items()}, device=dev)
+    first = enc.serialize_streams(cfg, out1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        checkpoint.save(ck, st1, streams=[b for b, _ in first],
+                        meta={"frames_done": half})
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(ck + ".npz")
+        t0 = time.perf_counter()
+        state, streams, meta = checkpoint.load(ck, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    if streams != [b for b, _ in first] or meta != {"frames_done": half}:
+        raise AssertionError("checkpoint: loaded bytes or meta differ")
+    for k, v in st1.items():
+        if state[k].device != v.device or not torch.equal(state[k], v):
+            raise AssertionError(f"checkpoint: loaded state {k} differs")
+    me_cuda.LAUNCHES = 0
+    _, out2 = enc.encode_sequence(
+        cfg, {k: v[:, half:] for k, v in dev_frames.items()}, state,
+        device=dev)
+    torch.cuda.synchronize()
+    launches = me_cuda.LAUNCHES
+    if launches < dev_frames["y"].shape[1] - half:
+        raise AssertionError(f"checkpoint: {launches} SAD kernel launches")
+    for k, v in outputs.items():
+        if not torch.equal(out2[k], v[:, half:]):
+            raise AssertionError(f"checkpoint: resumed {k} != phase 6's "
+                                 f"frames {half}+")
+    per_stream = out1["total_bits"].sum(dim=1) + out2["total_bits"].sum(dim=1)
+    if not torch.equal(per_stream, outputs["total_bits"].sum(dim=1)) \
+            or int(per_stream.sum()) != HEADLINE_BITS:
+        raise AssertionError("checkpoint: the halves' bits do not sum to "
+                             "phase 6's")
+    log(f"[checkpoint] frames 0-{half - 1} encoded, saved ({size} bytes, "
+        f"{t_save:.3f} s), loaded onto the card ({t_load:.3f} s), frames "
+        f"{half}-{dev_frames['y'].shape[1] - 1} resumed: every output == "
+        f"phase 6's, bits sum to {HEADLINE_BITS} on {card}")
+    return launches
+
+
+def multihost_worker(spec: dict) -> int:
+    """One process of phase 14: encode this rank's share of the streams
+    through distrib.multihost and print one JSON line of what it saw."""
+    import torch
+    import torch.distributed as dist
+
+    from p64tpu.spec.constants import CIF
+    from p64tpu_torch.distrib import mesh as dm
+    from p64tpu_torch.distrib import multihost
+    from p64tpu_torch.kernels import me_cuda
+
+    if not torch.cuda.is_available():
+        print("multihost worker: no CUDA device", file=sys.stderr)
+        return 1
+    torch.cuda.set_device(0)
+    rank, world = spec["rank"], spec["world"]
+    address = f"127.0.0.1:{spec['port']}"
+    if world > 1:
+        multihost.initialize(address, world, rank, backend=spec["backend"])
+    else:
+        # initialize() is a no-op for one process; a world of one still
+        # runs every collective through the backend
+        dist.init_process_group(spec["backend"],
+                                init_method=f"tcp://{address}",
+                                world_size=1, rank=0)
+    try:
+        frames = bench_content(CIF, spec["streams"], spec["frames"])
+        n = spec["streams"] // world
+        local = {k: v[rank * n:(rank + 1) * n] for k, v in frames.items()}
+        cfg = headline_cfg(emit_recon=False)
+        mesh = multihost.global_mesh()
+        me_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, outputs, agg = multihost.encode_global(cfg, mesh, local)
+        total = dm.agg_total_bits(agg)
+        t_enc = time.perf_counter() - t0
+        streams = multihost.finalize_local(cfg, outputs)
+        lengths = multihost.gather_stream_lengths([b for _, b in streams])
+        t_all = time.perf_counter() - t0
+        print(json.dumps(dict(
+            rank=rank, backend=dist.get_backend(), total_bits=total,
+            frames_coded=int(agg["frames_coded"]),
+            agg_device=str(agg["total_bits"].device),
+            lengths=lengths.tolist(),
+            sha256=[hashlib.sha256(b).hexdigest() for b, _ in streams],
+            launches=me_cuda.LAUNCHES, encode_s=t_enc, total_s=t_all)),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(specs) -> list:
+    """Start one chip_smoke.py worker per spec, all at once; each must exit
+    0 within WORKER_TIMEOUT, or every worker is killed and this raises.
+    Returns each worker's JSON line."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         json.dumps(spec)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for spec in specs]
+    deadline = time.monotonic() + WORKER_TIMEOUT
+    try:
+        outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for spec, p, (out, err) in zip(specs, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost worker {spec} exit "
+                                 f"{p.returncode}:\n{out}{err[-4000:]}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    return results
+
+
+def multihost_phase(dev, datas, lengths, card: str) -> dict:
+    """Phase 14: two gloo ranks on this card over the headline, then one
+    NCCL rank on a small batch; returns each rank's SAD launches."""
+    from p64tpu.spec.constants import CIF
+    from p64tpu_torch.core import encoder as enc
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    got = run_workers([dict(backend="gloo", rank=r, world=GLOO_WORLD,
+                            port=port, streams=HEADLINE_STREAMS,
+                            frames=HEADLINE_FRAMES)
+                       for r in range(GLOO_WORLD)])
+    wall = time.perf_counter() - t0
+    shas = [hashlib.sha256(d).hexdigest() for d in datas]
+    n = HEADLINE_STREAMS // GLOO_WORLD
+    for r, g in enumerate(got):
+        if g["backend"] != "gloo" or g["total_bits"] != HEADLINE_BITS:
+            raise AssertionError(f"gloo rank {r}: {g['backend']} agg total "
+                                 f"{g['total_bits']} != {HEADLINE_BITS}")
+        if g["lengths"] != lengths:
+            raise AssertionError(f"gloo rank {r}: gathered lengths != "
+                                 "phase 6's")
+        if g["sha256"] != shas[r * n:(r + 1) * n]:
+            raise AssertionError(f"gloo rank {r}: stream bytes != phase 6's")
+        if g["launches"] < HEADLINE_FRAMES:
+            raise AssertionError(f"gloo rank {r}: {g['launches']} SAD "
+                                 "kernel launches")
+    log(f"[multihost] gloo, {GLOO_WORLD} ranks on one card, "
+        f"{n} streams each: agg {HEADLINE_BITS} bits on both, gathered "
+        f"lengths and sha256s == phase 6's; encode + agg "
+        + ", ".join(f"{g['encode_s']:.3f}" for g in got)
+        + " s, with serialize + gather "
+        + ", ".join(f"{g['total_s']:.3f}" for g in got)
+        + f" s; {wall:.1f} s wall for the phase (process start included) "
+        f"on {card}")
+
+    s, t = NCCL_BATCH
+    want, out, _ = enc.encode_to_bytes(
+        headline_cfg(emit_recon=False), bench_content(CIF, s, t), device=dev)
+    want_len = out["total_bits"].sum(dim=1).tolist()
+    (g,) = run_workers([dict(backend="nccl", rank=0, world=1,
+                             port=_free_port(), streams=s, frames=t)])
+    if (g["backend"] != "nccl" or not g["agg_device"].startswith("cuda")
+            or g["total_bits"] != sum(want_len)
+            or g["lengths"] != want_len
+            or g["sha256"] != [hashlib.sha256(d).hexdigest() for d in want]):
+        raise AssertionError(f"nccl rank: {g} != encode_to_bytes")
+    log(f"[multihost] nccl, world size 1, {s}x{t} CIF: agg on "
+        f"{g['agg_device']} {g['total_bits']} bits, gathered lengths and "
+        f"sha256s == encode_to_bytes on {card}")
+    return {"gloo": [g_["launches"] for g_ in got], "nccl": g["launches"]}
+
+
+def profile_phase(card: str) -> int:
+    """Phase 15: tools.profile on the card with a trace; returns the
+    SAD-search launches it made."""
+    from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.tools import profile
+
+    s, t = PROFILE_BATCH
+    buf = io.StringIO()
+    me_cuda.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(buf):
+            rc = profile.main(["--streams", str(s), "--frames", str(t),
+                               "--format", "CIF", "--device", "cuda",
+                               "--trace-dir", tmp])
+        trace = os.path.join(tmp, "trace.json")
+        if rc != 0 or not os.path.exists(trace):
+            raise AssertionError(f"profile exit {rc}; trace written: "
+                                 f"{os.path.exists(trace)}")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[profile] {line}")
+    if "steady state" not in text or "Self CUDA" not in text:
+        raise AssertionError("profile: no steady-state line or no operator "
+                             "table by self CUDA time")
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[profile] {s}x{t} CIF on {card}: trace of {len(events)} events, "
+        f"{kernels} of them CUDA kernels; sad_search launches "
+        f"{me_cuda.LAUNCHES}")
+    return me_cuda.LAUNCHES
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) == 3 and sys.argv[1] == "--multihost-worker":
+        if not os.path.isdir(os.path.join(HERE, "p64tpu_torch")):
+            return 1
+        sys.path.insert(0, HERE)
+        return multihost_worker(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- this "
               "smoke run needs a CUDA card", file=sys.stderr)
@@ -553,12 +951,28 @@ def main() -> int:
     # 11. the pins decoded on the card and on the CPU
     pins_decoded(pins, dev)
 
+    # 12. the resilient, pipelined batch encoder over the headline
+    by_path = {"headline": launches}
+    by_path["batch"] = batch_phase(dev, frames, datas, card)
+
+    # 13. checkpoint at frame 16, resume on the card
+    by_path["checkpoint"] = checkpoint_phase(dev, dev_frames, outputs, card)
+    lengths = outputs["total_bits"].sum(dim=1).tolist()
+    del outputs
+
+    # 14. two gloo processes over the headline, one NCCL process
+    by_path["multihost"] = multihost_phase(dev, datas, lengths, card)
+
+    # 15. the profiler
+    by_path["profile"] = profile_phase(card)
+
     log(card)
     kernels = [{
         "name": "sad_search", "route": "cuda",
         "source": f"p64tpu_torch/csrc/{KERNEL_LIB}.cu",
         "replaces": "p64tpu/kernels/me_pallas.py:128",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches, "launches_by_path": by_path,
+        "max_abs_err": max_err,
         "ms": min(kernel_ms), "plain_ms": min(plain_ms)}]
     for name, replaces in MAP_KERNELS.items():
         kernels.append({

@@ -135,19 +135,23 @@ _STATE_DTYPES = dict(ref_y=torch.uint8, ref_cb=torch.uint8,
                      buffer=torch.int32, frame_idx=torch.int32)
 
 
-def state_from_numpy(d: Mapping[str, np.ndarray],
+def state_from_numpy(d: Mapping[str, object],
                      device: torch.device | str) -> State:
-    """Encoder state from numpy arrays laid out as the JAX package's
-    `init_state` (ref_y/ref_cb/ref_cr uint8 planes, refresh (nMB,) int32,
-    buffer and frame_idx int32 scalars), with or without a leading stream
-    axis -- so both packages can resume from the same mid-sequence state."""
-    batched = np.asarray(d["ref_y"]).ndim == 3
+    """Encoder state from numpy arrays or tensors laid out as the JAX
+    package's `init_state` (ref_y/ref_cb/ref_cr uint8 planes, refresh (nMB,)
+    int32, buffer and frame_idx int32 scalars), with or without a leading
+    stream axis -- so both packages can resume from the same mid-sequence
+    state, and from each other's checkpoints (io.checkpoint)."""
+    batched = d["ref_y"].ndim == 3
     out = {}
     for k, dt in _STATE_DTYPES.items():
-        a = np.array(d[k])               # a writable copy for torch
+        v = d[k]
+        # numpy: a writable copy for torch
+        t = (v.to(device) if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.array(v), device=device))
         if not batched:
-            a = a[None]
-        out[k] = torch.as_tensor(a, device=device).to(dt).contiguous()
+            t = t[None]
+        out[k] = t.to(dt).contiguous()
     return out
 
 
@@ -547,13 +551,47 @@ def encode_sequence(cfg: EncoderConfig, frames: Mapping[str, object],
 # ---------------------------------------------------------------------------
 
 
+#: the output keys outputs_to_symbols reads
+SYMBOL_KEYS = ("frame_coded", "tr", "gquant", "quant_mb", "coded", "mtype",
+               "mv", "cbp", "levels8", "dc_intra", "n_stuff")
+
+
+def outputs_to_host(outputs: Mapping[str, torch.Tensor]
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Optional[torch.cuda.Event]]:
+    """Start copying the SYMBOL_KEYS outputs to host memory without
+    waiting for the device: returns (host tensors, event).
+
+    On a CUDA device the copies go into pinned buffers with
+    non_blocking=True, queued behind the encode on the device's current
+    stream, and the event is recorded after them: the host tensors are
+    valid once `event.synchronize()` returns.  Waiting on that event alone
+    lets a caller queue more work first (tools.batch_encode pipelines
+    chunks so), where `tensor.cpu()` would wait for everything queued on
+    the stream.  CPU outputs are returned as they are, with no event."""
+    dev = outputs["frame_coded"].device
+    if dev.type != "cuda":
+        return {k: outputs[k] for k in SYMBOL_KEYS}, None
+    host = {}
+    for k in SYMBOL_KEYS:
+        v = outputs[k]
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return host, event
+
+
 def outputs_to_symbols(cfg: EncoderConfig,
-                       outputs: Mapping[str, torch.Tensor]
+                       outputs: Mapping[str, object]
                        ) -> List[List[FrameSymbols]]:
-    """Stacked (S, T, ...) device outputs -> per stream, the FrameSymbols of
-    its coded frames, ready for entropy.encode.serialize_sequence."""
-    host = {k: v.cpu().numpy() for k, v in outputs.items()
-            if k not in RECON_KEYS}
+    """Stacked (S, T, ...) outputs -> per stream, the FrameSymbols of its
+    coded frames, ready for entropy.encode.serialize_sequence.  Outputs
+    may be tensors on any device or host arrays (numpy, or the host
+    tensors of outputs_to_host once their event has completed)."""
+    host = {k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
+                                                       torch.Tensor)
+                else np.asarray(outputs[k])) for k in SYMBOL_KEYS}
     streams = []
     for si in range(host["frame_coded"].shape[0]):
         syms = []
@@ -576,12 +614,12 @@ def outputs_to_symbols(cfg: EncoderConfig,
 
 
 def serialize_streams(cfg: EncoderConfig,
-                      outputs: Mapping[str, torch.Tensor]
+                      outputs: Mapping[str, object]
                       ) -> List[Tuple[bytes, int]]:
     """Host finalize of a multi-stream batch: per stream, (bytes, nbits)
     from the native serializer, fanned across threads (the ctypes engine
     releases the GIL), as the reference's `distrib.mesh.serialize_streams`
-    does."""
+    does.  Outputs as outputs_to_symbols takes them."""
     load()   # build/load the engine once before fanning out
     return fan_map(lambda syms: serialize_sequence(cfg.fmt, syms),
                    outputs_to_symbols(cfg, outputs))

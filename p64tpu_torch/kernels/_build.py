@@ -14,8 +14,9 @@ flags of its Makefile:
       -o build/native/libp64bitio.so p64tpu/native/bitio.cpp
 
 The build directory (`build/` at the repository root) is git-ignored; a
-library is rebuilt when its source is newer.  A missing compiler or a failed
-compile raises -- there is no fallback.  Nothing here runs at import time.
+library is rebuilt when its source is newer.  A missing compiler, a failed
+compile or a library that does not load raises BuildError -- there is no
+fallback.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -45,6 +46,21 @@ CXX_FLAGS = ["-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared"]
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class BuildError(RuntimeError):
+    """A library could not be built or loaded: no compiler, a failed
+    compile, or a library the loader refuses.  Callers that retry failed
+    work (tools.batch_encode.encode_resilient) let it through: a retry
+    cannot fix a build."""
+
+
+def open_library(path: str) -> ctypes.CDLL:
+    """ctypes.CDLL(path), raising BuildError if the loader refuses it."""
+    try:
+        return ctypes.CDLL(path)
+    except OSError as e:
+        raise BuildError(f"cannot load {path}: {e}") from e
+
+
 def find_nvcc() -> str:
     """Path of nvcc: $CUDA_HOME/bin, then PATH, then DEFAULT_NVCC."""
     cands = []
@@ -57,7 +73,7 @@ def find_nvcc() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError(
+    raise BuildError(
         f"nvcc not found (looked in $CUDA_HOME/bin, PATH and {DEFAULT_NVCC})"
         ": the CUDA kernels cannot be built")
 
@@ -66,7 +82,7 @@ def find_cxx() -> str:
     """Path of the C++ compiler: $CXX if set, else g++ on PATH."""
     cxx = shutil.which(os.environ.get("CXX") or "g++")
     if cxx is None:
-        raise RuntimeError(
+        raise BuildError(
             "g++ not found (looked at $CXX and PATH): the native bit-I/O "
             "engine cannot be built")
     return cxx
@@ -99,7 +115,7 @@ def _compile(source: str, out: str, find: Callable[[], str],
         r = subprocess.run(command(tool, source, tmp),
                            capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(
+            raise BuildError(
                 f"{os.path.basename(tool)} failed on {source} (exit "
                 f"{r.returncode}):\n{r.stdout}{r.stderr}")
         os.replace(tmp, out)
@@ -128,6 +144,6 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu, once per process."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        lib = open_library(build(name))
         _loaded[name] = lib
     return lib

@@ -346,5 +346,5 @@ def load() -> NativeBitIO:
         return _cached
     with _load_lock:
         if _cached is None:
-            _cached = NativeBitIO(C.CDLL(_build.build_native()))
+            _cached = NativeBitIO(_build.open_library(_build.build_native()))
         return _cached

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card: the
-SAD-search kernel and the four SAD-map kernels; and the decoder on the
-card against its CPU decode and the encoder's reconstruction.
+SAD-search kernel and the four SAD-map kernels; the decoder on the card
+against its CPU decode and the encoder's reconstruction; the batch
+encoder, the stream mesh, checkpoints and the profiler on the card.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they also run on a GPU host without it:
@@ -145,3 +146,84 @@ def test_decode_seq_batch_on_the_card_equals_encoder_recon(cuda):
                                                         device=cuda)):
         for got, key in zip(planes, encoder.RECON_KEYS):
             np.testing.assert_array_equal(got, out[key][i].cpu().numpy())
+
+
+def _qcif_batch(n_streams, t):
+    one = gc.config2_qcif_inter()
+    return {k: np.stack([np.roll(v[:t], 7 * i, axis=-1)
+                         for i in range(n_streams)]) for k, v in one.items()}
+
+
+@pytest.mark.cuda
+def test_pipelined_batch_encode_on_the_card_equals_one_dispatch(cuda):
+    from p64tpu.spec.constants import QCIF
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.distrib import mesh as dm
+    from p64tpu_torch.tools import batch_encode
+
+    batch = _qcif_batch(5, 3)
+    cfg = encoder.EncoderConfig(fmt=QCIF, search=15, emit_recon=False,
+                                rate=RateConfig(fixed_quant=10))
+    want = encoder.encode_to_bytes(cfg, batch, device="cpu")[0]
+    card = dm.make_mesh(devices=[cuda])
+    before = me_cuda.LAUNCHES
+    one = batch_encode.encode_resilient(cfg, batch, card)
+    assert me_cuda.LAUNCHES - before == 3
+    chunked = batch_encode.encode_resilient(cfg, batch, card, chunk=2)
+    assert [b for b, _ in one] == [b for b, _ in chunked] == want
+    # two logical shards on the one card give the same bytes
+    two = dm.make_mesh(devices=[cuda, cuda])
+    assert batch_encode.encode_resilient(cfg, batch, two, chunk=3) == one
+
+
+@pytest.mark.cuda
+def test_outputs_to_host_copies_behind_an_event(cuda):
+    from p64tpu.spec.constants import QCIF
+    from p64tpu_torch.control.ratecontrol import RateConfig
+
+    cfg = encoder.EncoderConfig(fmt=QCIF, search=7,
+                                rate=RateConfig(fixed_quant=12))
+    _, out = encoder.encode_sequence(cfg, _qcif_batch(2, 2), device=cuda)
+    host, event = encoder.outputs_to_host(out)
+    assert event is not None
+    event.synchronize()
+    assert sorted(host) == sorted(encoder.SYMBOL_KEYS)
+    for k, v in host.items():
+        assert v.device.type == "cpu" and v.is_pinned()
+        assert torch.equal(v, out[k].cpu()), k
+
+
+@pytest.mark.cuda
+def test_checkpoint_resumes_on_the_card(cuda, tmp_path):
+    from p64tpu.spec.constants import QCIF
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.io import checkpoint
+
+    cfg = encoder.EncoderConfig(fmt=QCIF, search=15,
+                                rate=RateConfig(bit_rate=192_000))
+    batch = _qcif_batch(2, 4)
+    _, full = encoder.encode_sequence(cfg, batch, device=cuda)
+    st, _ = encoder.encode_sequence(cfg, {k: v[:, :2] for k, v in
+                                          batch.items()}, device=cuda)
+    checkpoint.save(str(tmp_path / "ck"), st)
+    loaded, _, _ = checkpoint.load(str(tmp_path / "ck"), device=cuda)
+    for k, v in st.items():
+        assert loaded[k].is_cuda and loaded[k].dtype == v.dtype
+        assert torch.equal(loaded[k], v), k
+    _, rest = encoder.encode_sequence(cfg, {k: v[:, 2:] for k, v in
+                                            batch.items()}, loaded,
+                                      device=cuda)
+    for k in encoder.SYMBOL_KEYS:
+        assert torch.equal(rest[k], full[k][:, 2:]), k
+
+
+@pytest.mark.cuda
+def test_profile_on_the_card_writes_a_trace(cuda, tmp_path, capsys):
+    from p64tpu_torch.tools import profile
+
+    assert profile.main(["--device", "cuda", "--streams", "2", "--frames",
+                         "2", "--format", "QCIF", "--trace-dir",
+                         str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "steady state" in out and "Self CUDA" in out
+    assert (tmp_path / "trace.json").exists()

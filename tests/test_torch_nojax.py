@@ -1,8 +1,9 @@
 """The PyTorch port runs where JAX is not installed (the GPU host has none):
 in a fresh interpreter whose import system refuses `jax`, the port imports
 every module, encodes QCIF at a fixed quantizer and under rate control with
-MQUANT segments, decodes both streams through the native engine, and runs
-the parity gate's SAD checks on the CPU."""
+MQUANT segments, decodes both streams through the native engine, runs the
+parity gate's SAD checks on the CPU, encodes on a mesh of two CPU shards
+and round-trips a checkpoint."""
 
 import os
 import subprocess
@@ -30,13 +31,17 @@ except ImportError:
 else:
     raise SystemExit("the jax blocker did not work")
 
+import numpy as np
 import torch
 
 torch.set_num_threads(1)
 import p64tpu_torch
 from p64tpu_torch import cli
 from p64tpu_torch.kernels import me_variants, me_variants_cuda
-from p64tpu_torch.tools import batch_decode, parity, pinned
+from p64tpu_torch.tools import (batch_decode, batch_encode, parity, pinned,
+                                profile)
+from p64tpu_torch.distrib import mesh, multihost
+from p64tpu_torch.io import checkpoint
 from p64tpu_torch.core import decoder, encoder
 from p64tpu_torch.entropy import parse
 from p64tpu_torch.native import load
@@ -61,6 +66,22 @@ coded = rc_out["frame_coded"][0]
 assert torch.equal(torch.from_numpy(cb), rc_out["recon_cb"][0][coded])
 assert len(parsed) == len(parse.parse_stream(rc_data[0]))
 assert parity.check_dct("cpu")
+two = {k: np.concatenate([v, v]) for k, v in frames.items()}
+two["y"][1] = 255 - two["y"][1]
+m = mesh.make_mesh(devices=["cpu"] * 2)
+states, sh_out, agg = mesh.make_sharded_encoder(cfg, m)(
+    mesh.shard_batch(m, mesh.init_states(cfg, 2)), mesh.shard_batch(m, two))
+sh_data = mesh.serialize_streams(cfg, sh_out)
+assert sh_data[0][0] == data[0] and sh_data[1][0] != data[0]
+assert mesh.agg_total_bits(agg) == sum(n for _, n in sh_data)
+assert batch_encode.encode_resilient(cfg, two, m, chunk=1) == sh_data
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    checkpoint.save(tmp + "/ck", states[1], streams=[sh_data[1][0]],
+                    meta={"frames": 2})
+    st, streams, meta = checkpoint.load(tmp + "/ck", device="cpu")
+assert streams == [sh_data[1][0]] and meta == {"frames": 2}
+assert all(torch.equal(st[k], v) for k, v in states[1].items())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not bad, bad
 print("NOJAX OK", len(data[0]))
