@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Run from a checkout of the repository on a machine with a CUDA card, nvcc
-and PyTorch built for CUDA; it needs no JAX and imports nothing of the JAX
-package's device code.  Phases, one line each, any failure ends the run
-with a non-zero exit and no result line:
+and PyTorch built for CUDA; it needs no JAX and imports nothing of JAX or
+of the JAX package (`p64tpu`).  Phases, one line each, any failure ends the
+run with a non-zero exit and no result line:
 
   1. device   -- nvidia-smi name and power limit, torch's device name
   2. build    -- nvcc-builds the kernel library, all five kernels, from
                  p64tpu_torch/csrc/sad_search.cu, and, at the same time,
-                 g++-builds the bit-I/O engine from p64tpu/native/bitio.cpp
+                 g++-builds the bit-I/O engine from
+                 p64tpu_torch/csrc/bitio.cpp; prints each kernel's ptxas
+                 registers, shared memory and spills
   3. parity   -- CIF, search 15, 4 streams, three kinds of content: the
                  SAD-search kernel's map equals the plain torch map and an
                  int64 numpy oracle; its fused (mv, best_sad, sad0) equals
@@ -32,10 +34,10 @@ with a non-zero exit and no result line:
                  the SAD-search kernel was launched on every frame
   7. timing   -- at the headline shape, the SAD kernel's (mv, best_sad,
                  sad0) equals the plain torch map + argmin; then both are
-                 timed
+                 timed, beside the kernel's bound and its share of it
   8. maps     -- at the headline shape, each SAD-map kernel's map equals
                  its plain version's; then each is timed beside its plain
-                 version and beside the SAD-search kernel's map mode
+                 version, its bound and the SAD-search kernel's map mode
   9. decode   -- the 128 headline streams parsed (native engine, one thread
                  per stream) and decoded on the card in one batch; every
                  plane equals the encoder's reconstruction; parse ms,
@@ -115,6 +117,19 @@ GLOO_WORLD, NCCL_BATCH = 2, (8, 4)
 WORKER_TIMEOUT = 300
 #: the profile phase's batch (streams, frames)
 PROFILE_BATCH = (8, 4)
+#: the bound's rates: integer lanes per SM, each taking one VABSDIFF4 (4
+#: byte abs-diffs, accumulated) per clock (NVIDIA Hopper architecture
+#: whitepaper: 64 INT32 lanes per SM), and device memory bytes per second
+#: (H100 SXM data sheet)
+INT_LANES_PER_SM, ABSDIFFS_PER_LANE = 64, 4
+MEMORY_BYTES_PER_S = 3.35e12
+#: ptxas's mangled kernel names -> the kernels' names
+PTXAS_KERNELS = (("sad_search_kernelILb0", "sad_search"),
+                 ("sad_search_kernelILb1", "sad_search map mode"),
+                 ("sad_map_f32_kernel", "sad_map_f32"),
+                 ("sad_map_rp_kernel", "sad_map_rp"),
+                 ("sad_map_packed_kernelILb0", "sad_map_i8"),
+                 ("sad_map_packed_kernelILb1", "sad_map_swar"))
 
 
 def log(msg: str) -> None:
@@ -126,6 +141,68 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sad_bound(cur, search: int, out_bytes: int, clock_hz: float) -> dict:
+    """The least time the card could take for the SAD work on (S, H, W)
+    planes: the abs-diffs of every (offset, MB) pair whose window lies
+    inside the picture, 4 per VABSDIFF4 on every integer lane of every SM
+    at the highest clock, against the bytes of both planes read once and
+    `out_bytes` written once.  Returns bound_ms, bound_by and the counts."""
+    import numpy as np
+    import torch
+
+    s, h, w = cur.shape
+    d = np.arange(-search, search + 1)
+    # per MB row (column): the dy (dx) whose window stays inside
+    rows = [int(((y0 + d >= 0) & (y0 + d + 16 <= h)).sum())
+            for y0 in range(0, h, 16)]
+    cols = [int(((x0 + d >= 0) & (x0 + d + 16 <= w)).sum())
+            for x0 in range(0, w, 16)]
+    absdiffs = s * sum(rows) * sum(cols) * 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_ms = absdiffs / (ABSDIFFS_PER_LANE * INT_LANES_PER_SM * sms
+                         * clock_hz) * 1e3
+    nbytes = 2 * s * h * w + out_bytes
+    bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                absdiffs=absdiffs, bytes=nbytes, ops_ms=ops_ms,
+                bytes_ms=bytes_ms)
+
+
+def ptxas_summary(lines) -> dict:
+    """Kernel name -> {registers, spill_bytes, smem_bytes} from the ptxas
+    lines of the kernel library's build."""
+    import re
+
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((n for key, n in PTXAS_KERNELS if key in m.group(1)),
+                        m.group(1))
+            out[name] = dict(registers=None, spill_bytes=0, smem_bytes=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def bench_content(fmt, streams: int, frames_t: int, noise: int = 5):
@@ -214,9 +291,10 @@ def check_pins(dev) -> dict:
     return streams
 
 
-def build_all() -> None:
+def build_all() -> dict:
     """Build the kernel library (nvcc) and the bit-I/O engine (g++) at the
-    same time, one compiler process each."""
+    same time, one compiler process each; print and return each kernel's
+    ptxas figures."""
     from concurrent.futures import ThreadPoolExecutor
 
     from p64tpu_torch.kernels import _build
@@ -233,6 +311,15 @@ def build_all() -> None:
         log(f"[build] {KERNEL_LIB}.cu built and loaded in "
             f"{kernels.result():.2f} s; bit-I/O engine (bitio.cpp) in "
             f"{native.result():.2f} s")
+    figures = ptxas_summary(_build.ptxas_report(KERNEL_LIB))
+    for name, f in figures.items():
+        log(f"[build] ptxas {name}: {f['registers']} registers, "
+            f"{f['smem_bytes']} bytes static shared memory, "
+            f"{f['spill_bytes']} bytes spilled")
+    missing = [n for _, n in PTXAS_KERNELS if n not in figures]
+    if missing:
+        raise AssertionError(f"no ptxas figures for {missing}")
+    return figures
 
 
 def gate() -> dict:
@@ -254,10 +341,11 @@ def gate() -> dict:
     return launches
 
 
-def map_kernels(cur, ref, card: str) -> dict:
+def map_kernels(cur, ref, card: str, clock_hz: float) -> dict:
     """Each SAD-map kernel against its plain version on (S, H, W) planes:
     equal maps, then both timed with CUDA events beside the SAD-search
-    kernel's map mode.  Returns name -> {max_abs_err, ms, plain_ms}."""
+    kernel's map mode and the map's bound.  Returns name -> {max_abs_err,
+    ms, plain_ms, bound_ms, bound_by}."""
     import torch
 
     from p64tpu_torch.kernels import me_cuda, me_variants
@@ -278,6 +366,9 @@ def map_kernels(cur, ref, card: str) -> dict:
                                  f"the headline shape: max |err| {err}")
         del got, want
         out[name] = {"max_abs_err": err}
+    s, h, w = cur.shape
+    n_map = s * (2 * SEARCH + 1) ** 2 * (h // 16) * (w // 16)
+    bound = sad_bound(cur, SEARCH, 4 * n_map, clock_hz)
     k2_map, rounds = [], 2
     for name in MAP_KERNELS:
         kernel, plain = me_variants.VARIANTS[name]
@@ -287,12 +378,21 @@ def map_kernels(cur, ref, card: str) -> dict:
             p_ms.append(cuda_ms(lambda: plain(cur, ref, SEARCH), 2))
             k2_map.append(cuda_ms(lambda: me_cuda.sad_search_cuda(
                 cur, ref, SEARCH, with_map=True), 20))
-        out[name].update(ms=min(k_ms), plain_ms=min(p_ms))
+        out[name].update(ms=min(k_ms), plain_ms=min(p_ms),
+                         bound_ms=bound["bound_ms"],
+                         bound_by=bound["bound_by"])
         log(f"[maps] {name} {tuple(cur.shape)} s={SEARCH}: map == plain; "
-            f"kernel {min(k_ms):.3f} ms, plain {min(p_ms):.3f} ms per call "
-            f"on {card}")
+            f"kernel {min(k_ms):.3f} ms, plain {min(p_ms):.3f} ms per call, "
+            f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']} "
+            f"({bound['bound_ms'] / min(k_ms):.1%} of it) on {card}")
     log(f"[maps] sad_search map mode (A/B reference): {min(k2_map):.3f} ms "
-        f"per call on {card}")
+        f"per call, {bound['bound_ms'] / min(k2_map):.1%} of the bound, on "
+        f"{card}")
+    log(f"[maps] bound: {bound['absdiffs']} abs-diffs of in-picture "
+        f"offsets at {INT_LANES_PER_SM * ABSDIFFS_PER_LANE} per SM per "
+        f"clock and {clock_hz / 1e6:.0f} MHz = {bound['ops_ms']:.4f} ms; "
+        f"{bound['bytes']} bytes at {MEMORY_BYTES_PER_S / 1e12} TB/s = "
+        f"{bound['bytes_ms']:.4f} ms")
     return out
 
 
@@ -303,11 +403,11 @@ def headline(dev, dev_frames, card: str):
     encode, the encoder outputs, the stream bytes)."""
     import torch
 
-    from p64tpu.spec.constants import CIF
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.core import encoder as enc
     from p64tpu_torch.entropy.encode import serialize_sequence_py
     from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.spec.constants import CIF
 
     n_streams, n_frames = dev_frames["y"].shape[:2]
     cfg = enc.EncoderConfig(fmt=CIF, search=SEARCH,
@@ -376,10 +476,10 @@ def decode_mix(dev, streams: int, frames_t: int):
     import numpy as np
     import torch
 
-    from p64tpu.spec.constants import CIF
-    from p64tpu.spec.luts import MTYPE_MQUANT
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.spec.luts import MTYPE_MQUANT
 
     datas, recons, n_stuff, n_mq = [], [], 0, 0
     mq_types = torch.as_tensor(np.flatnonzero(MTYPE_MQUANT), device=dev)
@@ -479,9 +579,9 @@ def pins_decoded(pins: dict, dev) -> None:
 
 
 def headline_cfg(emit_recon: bool = True):
-    from p64tpu.spec.constants import CIF
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.spec.constants import CIF
 
     return enc.EncoderConfig(fmt=CIF, search=SEARCH, emit_recon=emit_recon,
                              rate=RateConfig(fixed_quant=HEADLINE_QUANT))
@@ -493,9 +593,9 @@ def batch_phase(dev, frames, datas, card: str) -> int:
     Returns the SAD-search launches of the first chunked run."""
     import torch
 
-    from p64tpu.io import yuv
     from p64tpu_torch.core import encoder as enc
     from p64tpu_torch.distrib import mesh as dm
+    from p64tpu_torch.io import yuv
     from p64tpu_torch.kernels import me_cuda
     from p64tpu_torch.tools import batch_encode
 
@@ -669,10 +769,10 @@ def multihost_worker(spec: dict) -> int:
     import torch
     import torch.distributed as dist
 
-    from p64tpu.spec.constants import CIF
     from p64tpu_torch.distrib import mesh as dm
     from p64tpu_torch.distrib import multihost
     from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.spec.constants import CIF
 
     if not torch.cuda.is_available():
         print("multihost worker: no CUDA device", file=sys.stderr)
@@ -752,8 +852,8 @@ def run_workers(specs) -> list:
 def multihost_phase(dev, datas, lengths, card: str) -> dict:
     """Phase 14: two gloo ranks on this card over the headline, then one
     NCCL rank on a small batch; returns each rank's SAD launches."""
-    from p64tpu.spec.constants import CIF
     from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.spec.constants import CIF
 
     t0 = time.perf_counter()
     port = _free_port()
@@ -854,8 +954,8 @@ def main() -> int:
 
     import numpy as np
 
-    from p64tpu.spec.constants import CIF
-    from p64tpu_torch.kernels import me, me_cuda
+    from p64tpu_torch.kernels import me, me_cuda, me_variants_cuda
+    from p64tpu_torch.spec.constants import CIF
     from p64tpu_torch.tools.parity import sad_oracle
 
     dev = torch.device("cuda", 0)
@@ -867,7 +967,8 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build
-    build_all()
+    ptxas = build_all()
+    clock_hz = max_sm_clock_hz()
 
     # 3. SAD parity at CIF
     max_err = 0
@@ -907,7 +1008,10 @@ def main() -> int:
     # 6. headline shape
     frames = bench_content(CIF, HEADLINE_STREAMS, HEADLINE_FRAMES)
     dev_frames = {k: torch.as_tensor(v, device=dev) for k, v in frames.items()}
+    for name in me_variants_cuda.LAUNCHES:
+        me_variants_cuda.LAUNCHES[name] = 0
     launches, outputs, datas = headline(dev, dev_frames, card)
+    main_path = {"sad_search": launches, **me_variants_cuda.LAUNCHES}
     if launches < HEADLINE_FRAMES:
         raise AssertionError(f"SAD kernel launched {launches} times in the "
                              f"headline encode, expected >= "
@@ -931,12 +1035,17 @@ def main() -> int:
         plain_ms.append(cuda_ms(
             lambda: me.search_from_map(me.sad_map(cur, ref, SEARCH), SEARCH),
             3))
+    n_mb = cur.shape[0] * (cur.shape[1] // 16) * (cur.shape[2] // 16)
+    bound = sad_bound(cur, SEARCH, 16 * n_mb, clock_hz)  # mv, best, sad0
     log(f"[timing] sad_search {HEADLINE_STREAMS}x CIF s={SEARCH}: kernel "
         f"{min(kernel_ms):.3f} ms, plain torch map+argmin "
-        f"{min(plain_ms):.3f} ms per call on {card}")
+        f"{min(plain_ms):.3f} ms per call; bound {bound['bound_ms']:.3f} ms "
+        f"by {bound['bound_by']} ({bound['absdiffs']} abs-diffs at "
+        f"{clock_hz / 1e6:.0f} MHz), {bound['bound_ms'] / min(kernel_ms):.1%}"
+        f" of it, on {card}")
 
     # 8. the SAD-map kernels at the headline shape
-    maps = map_kernels(cur, ref, card)
+    maps = map_kernels(cur, ref, card, clock_hz)
 
     # 9. decode the headline streams on the card
     decode_check("decode", datas, tuple(outputs[k] for k in (
@@ -971,15 +1080,19 @@ def main() -> int:
         "name": "sad_search", "route": "cuda",
         "source": f"p64tpu_torch/csrc/{KERNEL_LIB}.cu",
         "replaces": "p64tpu/kernels/me_pallas.py:128",
-        "launches": launches, "launches_by_path": by_path,
-        "max_abs_err": max_err,
-        "ms": min(kernel_ms), "plain_ms": min(plain_ms)}]
+        "launches": launches, "main_path_launches": main_path["sad_search"],
+        "launches_by_path": by_path, "max_abs_err": max_err,
+        "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None, "ptxas": ptxas["sad_search"]}]
     for name, replaces in MAP_KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"p64tpu_torch/csrc/{KERNEL_LIB}.cu",
             "replaces": f"p64tpu/kernels/me_pallas.py:{replaces}",
-            "launches": map_launches[name], **maps[name]})
+            "launches": map_launches[name],
+            "main_path_launches": main_path[name], **maps[name],
+            "library_ms": None, "ptxas": ptxas[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

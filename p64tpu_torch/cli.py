@@ -19,9 +19,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from p64tpu import stats
-from p64tpu.io import yuv
-from p64tpu.spec.constants import DEFAULT_SEARCH_RANGE
+from . import stats
+from .io import yuv
+from .spec.constants import DEFAULT_SEARCH_RANGE
 
 
 def build_parser() -> argparse.ArgumentParser:

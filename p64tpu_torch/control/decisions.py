@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from p64tpu.spec.constants import INTRA_REFRESH_PERIOD
+from ..spec.constants import INTRA_REFRESH_PERIOD
 
 
 @dataclasses.dataclass(frozen=True)

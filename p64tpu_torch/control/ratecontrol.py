@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from p64tpu.spec.constants import QUANT_MAX, QUANT_MIN
+from ..spec.constants import QUANT_MAX, QUANT_MIN
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from p64tpu.spec.constants import (
+from ..spec.constants import (
     BLOCK_SIZE,
     GOB_MB_COLS,
     GOB_MB_ROWS,

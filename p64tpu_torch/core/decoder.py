@@ -21,8 +21,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from p64tpu.spec.constants import MB_SIZE, Format
-
+from ..spec.constants import MB_SIZE, Format
 from ..entropy.parse import ParsedFrame
 from ..native import load
 from ..utils import fan_map

@@ -35,7 +35,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from p64tpu.spec.constants import (
+from ..spec.constants import (
     DEFAULT_SEARCH_RANGE,
     INTRA_DC_MAX,
     INTRA_DC_MIN,
@@ -43,8 +43,7 @@ from p64tpu.spec.constants import (
     MBS_PER_GOB,
     Format,
 )
-from p64tpu.spec.tables import MTYPE_BY_NAME
-
+from ..spec.tables import MTYPE_BY_NAME
 from ..control.decisions import DecisionConfig, decide_modes
 from ..control.ratecontrol import (
     STUFF_BITS,

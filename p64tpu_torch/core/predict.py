@@ -17,8 +17,7 @@ from typing import Optional
 
 import torch
 
-from p64tpu.spec.constants import BLOCK_SIZE, MB_SIZE, Format
-
+from ..spec.constants import BLOCK_SIZE, MB_SIZE, Format
 from ..kernels.filter import loop_filter8x8
 from .blocks import mb_to_yblocks, yblocks_to_mb
 

@@ -16,8 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from p64tpu.spec.constants import BLOCK_SIZE, Format
-
+from ..spec.constants import BLOCK_SIZE, Format
 from ..kernels.dct import idct8x8
 from ..kernels.quant import dequantize
 from .blocks import mbs_to_luma, tiles_to_plane, yblocks_to_mb

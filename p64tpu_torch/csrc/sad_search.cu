@@ -18,55 +18,91 @@
 // at (0, 0).  The map kernels are held equal to their plain torch versions
 // (p64tpu_torch/kernels/me_variants.py) on the card.
 //
-// What bounds them on the card: integer (or float) instruction throughput.
-// Each macroblock costs 961 x 256 abs-diffs at search 15, about 12.5 G per
-// frame of 128 CIF streams, against about 26 MB of input per frame (about
-// 200 KB per stream); device memory is not the limit of the search.  A
-// dense map adds 195 MB of stores per frame of 128 CIF streams, one 4-byte
-// store per (offset, MB), not coalesced across MBs.
+// What bounds them on the card: integer instruction issue.  Each macroblock
+// costs up to 961 x 256 abs-diffs at search 15, 11.28 G per frame of 128
+// CIF streams once offsets off the picture are left out, against about
+// 26 MB of input per frame; device memory is not the limit of the search.
+// The cheapest instruction for the work is VABSDIFF4 with accumulate
+// (PTX vabsdiff4.add: 4 byte abs-diffs summed into a 32-bit register),
+// which issues on the SM's 64 integer lanes per clock, as IADD3 and IDP4A
+// do (measured on an H100); that puts the floor of the work at 0.169 ms
+// per frame at 1,980 MHz.  No tensor core helps: |a - b| has no product
+// form, and VABSDIFF4 already pools 4 bytes into its accumulator, so an
+// mma/wgmma pool could only add work.  A dense map adds 195 MB of stores
+// per frame of 128 CIF streams.
 //
-// What the designs do about it (simple first versions):
-//   * search, f32, i8, swar: one block per (stream, macroblock); the 16x16
-//     current block and the reference window (rows y0-15 .. y0+30, columns
-//     x0-16 .. x0+31) are staged once in shared memory, and each thread
-//     walks its share of the offsets.  They differ in the inner loop only:
-//       - search: the current block in 64 registers; one row of 16 pixels
-//         is 5 aligned word loads, 4 funnel shifts to the offset's byte
-//         alignment and 4 __vsadu4 (4 pixels per SIMD instruction).  The
-//         (sad, offset) pairs are reduced as one 64-bit key
-//         (sad << 32 | offset), which keeps the first minimum; the map is
-//         written only when asked for, so on the encoder's path it never
-//         reaches device memory.
-//       - f32 (CUDA cores, no tensor core, no TF32): the window staged as
-//         floats, float abs-diff and a float accumulator.  Exact: every
-//         partial sum is an integer <= 65,280 < 2^24.
-//       - i8: __vabsdiffu4 gives 4 packed |a - b| bytes; XOR 0x80808080
-//         turns each into the int8 ad - 128; __dp4a(word, 0x01010101, acc)
-//         pools 4 of them per instruction; + 128 * 256 per box undoes the
-//         bias.  The TPU fed the biased bytes to its int8 matrix unit; the
-//         Hopper analogue, mma.sync / wgmma on s8 operands, is left for a
-//         later version.
-//       - swar: the TPU's formulation in plain 32-bit integer ops, no byte
-//         SIMD intrinsic: bytes 0,2 and 1,3 of each word become two 16-bit
-//         fields, pair_absdiff takes |u - v| per field with the 0x01000100
-//         bias, the bit-8 mask and a select, and the fields accumulate
-//         packed (<= 510 * 4 * 16 = 32,640 < 2^16) until one unpack per
-//         box.  Beside the search's __vsadu4 it is the A/B of integer SWAR
-//         emulation against the hardware's byte SIMD.
-//     i8 and swar read the reference at any byte column through the
-//     search's funnel-shift alignment of 32-bit words.
-//   * rp: row pool first, as the TPU kernel.  One block per (stream, MB row,
-//     dy); each thread owns pixel columns x, keeps the current block's 16
-//     rows of its column in registers, and for every dx forms the 16-row
-//     column sum of |cur - ref| into shared memory (31 x 352 int32 =
-//     43.6 KB at CIF, under the 48 KB static limit; wider pictures are
-//     refused).  A second pass pools 16 columns per MB, so the column sums
-//     are shared by every MB of the row.  The TPU split the column sums
-//     into 64 * hi + lo only so that its bf16 matrix unit would pool them
-//     exactly; int32 sums are exact as they are, so there is no split here.
-// Left for later: several MBs per block sharing one window, register
-// tiling of the window, a persistent grid, a coalesced (MB-fastest) map
-// store, s8 tensor cores for the i8 pool.
+// K2, the search (one thread per 4 dx x 8 dy of one MB, register tiled):
+//   * A thread owns byte columns 4g..4g+3 of the window (4 dx sharing one
+//     word alignment) and 8 consecutive dy.  It walks the 23 window rows
+//     its dy need once; for each row it loads 16 words, its 4 words in each
+//     of the 4 byte alignments, and adds 16 vabsdiff4.add into each of the
+//     8 dy whose 16 rows hold that row.  That is 2,048 SIMD ops against
+//     368 shared loads per 32 offsets.  The 4 alignments are copies of the
+//     window shifted by 0..3 bytes, made once per block with
+//     __funnelshift_r, so that the per-offset loop spends no integer
+//     instruction on alignment.
+//   * A block serves up to `mb_tile` horizontally adjacent MBs of one MB
+//     row; they share one window staged with cp.async 16-byte chunks (x0-16
+//     is a multiple of 16, so a chunk lies wholly inside or outside the
+//     picture, and the zero-fill form gives the border).  At search 15 the
+//     tile grid is 8 dx groups x 4 dy tiles = 32 threads per MB, 8 MBs per
+//     256-thread block; dx = -16 and dy = 16 are padding that makes no key,
+//     and a ragged last tile of an MB row (QCIF, CIF) is masked.  The block
+//     is (dx group, MB, dy tile), dx group fastest, so a warp's window
+//     loads fall on distinct banks or broadcast, and the grid is (MB tile,
+//     MB row, stream): no thread divides to find its place.
+//   * Each thread walks its offsets in increasing o, the (2s+1)-wide
+//     offset index, keeps the first least SAD, and writes the key
+//     (uint64)sad << 32 | o; the lexicographic minimum of the keys is the
+//     first minimum.  Offsets off the picture or past the search are
+//     ORed with an all-ones penalty instead of branching: the winner lies
+//     inside the picture ((0, 0) always does).  Two passes in shared memory
+//     reduce the MB's keys, over its dx groups and then its dy tiles.  The
+//     owner of (0, 0) writes sad0.
+//   * Map mode (parity only) stages each offset's values of the tile's MBs
+//     in shared memory, over the window copies, and writes them as runs of
+//     consecutive MBs.
+//   * The wrapper (kernels/me_cuda.py::search_tiles) computes the tile
+//     geometry; tests/test_torch_me_tiles.py walks it on the CPU.
+//   * Tried and measured (PERF.md): 4 dy per thread with the alignments
+//     formed by funnel shifts in the loop, and a persistent grid that
+//     double-buffers the next tile's window; both were slower.
+// K3, rp: rows pooled first, as the TPU kernel: per dx, each column's sum
+//   of |cur - ref| over the MB's 16 rows, then 16 columns per MB.  One block
+//   per (stream, MB row, group of `dy_per_block` dy); it stages the 16
+//   current rows and the group's reference rows with a 16-byte halo on each
+//   side in shared memory once (cp.async, zero fill) and loops over its dy.
+//   A thread owns 4 adjacent columns as one word: per row it loads 9 words,
+//   and per dx __funnelshift_r aligns the reference word and __vabsdiffu4
+//   takes 4 abs-diffs.  __byte_perm moves columns 1 and 3 into a word of
+//   16-bit fields that a plain add accumulates (16 x 255 < 2^16: no carry
+//   crosses a field); a second plain add sums the packed words themselves,
+//   mod 2^32, and subtracting the first sum shifted by 8 leaves the sums of
+//   columns 0 and 2, so each row costs one byte permute, not two.  The 4
+//   column sums fold in registers and 4 threads per MB pool by shuffles.  The TPU split the column sums into 64 * hi + lo only so
+//   that its bf16 matrix unit would pool them exactly; integer sums are
+//   exact as they are.  Pictures wider than CIF are refused.
+// K1, K4, K5 (simple first versions): one block per (stream, macroblock);
+//   the 16x16 current block and the reference window (rows y0-15 ..
+//   y0+30, columns x0-16 .. x0+31) are staged once in shared memory, and
+//   each thread walks its share of the offsets.  They differ in the inner
+//   loop only:
+//     - f32 (CUDA cores, no tensor core, no TF32): the window staged as
+//       floats, float abs-diff and a float accumulator.  Exact: every
+//       partial sum is an integer <= 65,280 < 2^24.
+//     - i8: __vabsdiffu4 gives 4 packed |a - b| bytes; XOR 0x80808080
+//       turns each into the int8 ad - 128; __dp4a(word, 0x01010101, acc)
+//       pools 4 of them per instruction; + 128 * 256 per box undoes the
+//       bias.  The TPU fed the biased bytes to its int8 matrix unit.
+//     - swar: the TPU's formulation in plain 32-bit integer ops, no byte
+//       SIMD intrinsic: bytes 0,2 and 1,3 of each word become two 16-bit
+//       fields, pair_absdiff takes |u - v| per field with the 0x01000100
+//       bias, the bit-8 mask and a select, and the fields accumulate
+//       packed (<= 510 * 4 * 16 = 32,640 < 2^16) until one unpack per
+//       box.  It is the gate's check of integer SWAR against the hardware's
+//       byte SIMD, and sits at that formulation's instruction floor.
+//   i8 and swar read the reference at any byte column through a funnel-
+//   shift alignment of 32-bit words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,13 +111,22 @@ namespace {
 
 constexpr int kMb = 16;
 constexpr int kMargin = 15;                  // H.261 MV range
-constexpr int kSideMax = 2 * kMargin + 1;    // 31
 constexpr int kWinRows = kMb + 2 * kMargin;  // 46
 constexpr int kWinWords = 12;                // 48 bytes: x0-16 .. x0+31
 constexpr int kWinCols = 4 * kWinWords;
 constexpr int kThreads = 256;
 constexpr int kInvalid = 1 << 30;
+constexpr int kStaticSmem = 48 * 1024;       // no opt-in attribute needed
+// K2's register tile: 8 dy per thread over the 23 window rows they need,
+// read in 4 byte alignments
+constexpr int kTileDy = 8;
+constexpr int kTileRows = kTileDy + kMb - 1;
+constexpr int kAligns = 4;
+// K3
 constexpr int kRpMaxWidth = 352;             // CIF, the widest H.261 picture
+constexpr int kRpSide = 2 * kMargin + 1;     // dx computed per column word
+constexpr int kRpHaloWords = 4;              // 16 bytes each side
+constexpr int kRpMaxThreads = 128;           // >= kRpMaxWidth / 4, whole warps
 
 __device__ __forceinline__ bool window_inside(int y0, int x0, int dy, int dx,
                                               int height, int width) {
@@ -89,10 +134,33 @@ __device__ __forceinline__ bool window_inside(int y0, int x0, int dy, int dx,
          x0 + dx + kMb <= width;
 }
 
-// Stage the reference window and the current block as 32-bit words; pixels
-// outside the picture read as 0 and are used by no valid offset.  x0 - 16
-// is a multiple of 16 and the width of 16, so a word lies wholly inside or
-// wholly outside the picture.
+// One 16-byte cp.async; with inside false it writes 16 zero bytes and reads
+// nothing (src is then any valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool inside) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(inside ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// sum of the 4 byte abs-diffs of a and b, plus acc: one VABSDIFF4.ACC
+__device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
+                                         uint32_t acc) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+// Stage the reference window and the current block as 32-bit words for the
+// one-MB-per-block kernels; pixels outside the picture read as 0 and are
+// used by no valid offset.
 __device__ __forceinline__ void stage_words(const uint32_t* cur_plane,
                                             const uint32_t* ref_plane,
                                             int height, int width, int y0,
@@ -118,86 +186,232 @@ __device__ __forceinline__ void stage_words(const uint32_t* cur_plane,
 
 // ------------------------------------------------- K2: the fused search
 
-__global__ void __launch_bounds__(kThreads)
+// Block (n_dxg, mb_tile, n_dyt), grid (tiles per MB row, MB rows, streams),
+// from kernels/me_cuda.py::search_tiles.  Shared memory: the window in 4
+// copies, copy j shifted by j bytes (the map of a tile aliases them once
+// the search is done), the current rows, one key per thread.
+__host__ __device__ __forceinline__ int search_win_words(int mb_tile) {
+  return 4 * mb_tile + 8;
+}
+
+__host__ __device__ __forceinline__ int search_win_rows(int n_dyt) {
+  return kTileDy * n_dyt + kMb - 1;
+}
+
+__host__ __device__ __forceinline__ size_t search_smem_bytes(
+    int mb_tile, int n_dxg, int n_dyt, int search, bool with_map) {
+  const int side = 2 * search + 1;
+  const size_t win = 4 * (size_t)kAligns * search_win_rows(n_dyt) *
+                     search_win_words(mb_tile);
+  // whole 16-byte chunks, so that the current rows stay aligned
+  const size_t map = with_map ? 16 * (((size_t)side * side * mb_tile + 3) / 4)
+                              : 0;
+  return (win > map ? win : map) + 4 * (size_t)kMb * 4 * mb_tile +
+         8 * (size_t)n_dxg * mb_tile * n_dyt;
+}
+
+template <bool kMap>
+__global__ void __launch_bounds__(kThreads, 2)
 sad_search_kernel(const uint8_t* __restrict__ cur,
                   const uint8_t* __restrict__ ref, int height, int width,
-                  int search, int32_t* __restrict__ mv,
+                  int search, int g_lo, int32_t* __restrict__ mv,
                   int32_t* __restrict__ best_sad, int32_t* __restrict__ sad0,
                   int32_t* __restrict__ sad_map) {
-  __shared__ uint32_t win[kWinRows * kWinWords];
-  __shared__ uint32_t cur_words[kMb * 4];
-  __shared__ unsigned long long warp_best[kThreads / 32];
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_dxg = blockDim.x;
+  const int mb_tile = blockDim.y;
+  const int n_dyt = blockDim.z;
+  const int n_threads = n_dxg * mb_tile * n_dyt;
+  const int tid = threadIdx.x + n_dxg * (threadIdx.y + mb_tile * threadIdx.z);
+  const int win_words = search_win_words(mb_tile);
+  const int win_rows = search_win_rows(n_dyt);
+  const int copy_words = win_rows * win_words;
+  const int side = 2 * search + 1;
+  const size_t win_part = (size_t)kAligns * copy_words;
+  const size_t map_part = kMap ? ((size_t)side * side * mb_tile + 3) / 4 * 4
+                                : 0;
+  uint32_t* win = smem;
+  uint32_t* cur_s = win + (win_part > map_part ? win_part : map_part);
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(cur_s + kMb * 4 * mb_tile);
+  int32_t* map_s = reinterpret_cast<int32_t*>(win);
 
   const int mb_cols = width / kMb;
   const int n_mb = mb_cols * (height / kMb);
-  const int stream = blockIdx.y;
-  const int mb = blockIdx.x;
-  const int y0 = (mb / mb_cols) * kMb;
-  const int x0 = (mb % mb_cols) * kMb;
+  const int mb_row = blockIdx.y;
+  const int stream = blockIdx.z;
+  const int mc0 = blockIdx.x * mb_tile;
+  const int n_here = min(mb_tile, mb_cols - mc0);
+  const int y0 = mb_row * kMb;
+  const int xt = mc0 * kMb;
   const size_t plane = (size_t)height * width;
-  stage_words(reinterpret_cast<const uint32_t*>(cur + stream * plane),
-              reinterpret_cast<const uint32_t*>(ref + stream * plane), height,
-              width, y0, x0, win, cur_words);
+  const uint8_t* ref_plane = ref + stream * plane;
+  const uint8_t* cur_plane = cur + stream * plane;
+
+  // window rows y0 - search .., byte columns xt - 16 .., in 16-byte chunks
+  const int win_chunks = mb_tile + 2;
+  for (int i = tid; i < win_rows * win_chunks; i += n_threads) {
+    const int r = i / win_chunks;
+    const int c = i - r * win_chunks;
+    const int py = y0 - search + r;
+    const int px = xt - 16 + 16 * c;
+    const bool inside = py >= 0 && py < height && px >= 0 && px < width;
+    cp_async16(win + r * win_words + 4 * c,
+               inside ? ref_plane + (size_t)py * width + px : ref_plane,
+               inside);
+  }
+  for (int i = tid; i < kMb * mb_tile; i += n_threads) {
+    const int r = i / mb_tile;
+    const int c = i - r * mb_tile;
+    const bool inside = c < n_here;
+    cp_async16(cur_s + r * 4 * mb_tile + 4 * c,
+               inside ? cur_plane + (size_t)(y0 + r) * width + xt + 16 * c
+                      : cur_plane,
+               inside);
+  }
+  cp_async_wait_all();
   __syncthreads();
+  // copies 1..3: the window shifted by 1..3 bytes, so the search reads
+  // every byte alignment with plain loads (a row's last word is never read)
+  for (int i = tid; i < copy_words; i += n_threads) {
+    const uint32_t a = win[i];
+    const uint32_t b = i + 1 < copy_words ? win[i + 1] : 0;
+    win[copy_words + i] = __funnelshift_r(a, b, 8);
+    win[2 * copy_words + i] = __funnelshift_r(a, b, 16);
+    win[3 * copy_words + i] = __funnelshift_r(a, b, 24);
+  }
+  __syncthreads();
+
+  const int m = threadIdx.y;
+  const int t = threadIdx.z;
+  const int g = g_lo + threadIdx.x;  // byte columns 4g .. 4g+3
 
   uint32_t c[kMb * 4];
+  const uint4* cur4 = reinterpret_cast<const uint4*>(cur_s);
 #pragma unroll
-  for (int i = 0; i < kMb * 4; ++i) c[i] = cur_words[i];
+  for (int r = 0; r < kMb; ++r) {
+    const uint4 v = cur4[r * mb_tile + m];
+    c[4 * r + 0] = v.x;
+    c[4 * r + 1] = v.y;
+    c[4 * r + 2] = v.z;
+    c[4 * r + 3] = v.w;
+  }
 
-  const int side = 2 * search + 1;
-  const int n_off = side * side;
-  unsigned long long best = ~0ull;
-  for (int o = threadIdx.x; o < n_off; o += kThreads) {
-    const int dy = o / side - search;
-    const int dx = o % side - search;
-    int sad = kInvalid;
-    if (window_inside(y0, x0, dy, dx, height, width)) {
-      const int col = 16 + dx;                 // byte column in the window
-      const int shift = (col & 3) * 8;
-      const uint32_t* p = win + (kMargin + dy) * kWinWords + (col >> 2);
-      uint32_t acc = 0;
+  // acc[i][j]: dy + search = kTileDy * t + i, dx + 16 = 4 g + j
+  uint32_t acc[kTileDy][4];
 #pragma unroll
-      for (int r = 0; r < kMb; ++r) {
-        const uint32_t* q = p + r * kWinWords;
-        const uint32_t a0 = q[0], a1 = q[1], a2 = q[2], a3 = q[3], a4 = q[4];
-        acc += __vsadu4(__funnelshift_r(a0, a1, shift), c[4 * r + 0]);
-        acc += __vsadu4(__funnelshift_r(a1, a2, shift), c[4 * r + 1]);
-        acc += __vsadu4(__funnelshift_r(a2, a3, shift), c[4 * r + 2]);
-        acc += __vsadu4(__funnelshift_r(a3, a4, shift), c[4 * r + 3]);
+  for (int i = 0; i < kTileDy; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  const uint32_t* p = win + kTileDy * t * win_words + 4 * m + g;
+#pragma unroll
+  for (int q = 0; q < kTileRows; ++q) {
+    uint32_t al[4][4];  // al[j][k]: bytes 4(g+k)+j .. of window row q
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        al[j][k] = p[j * copy_words + q * win_words + k];
+#pragma unroll
+    for (int i = 0; i < kTileDy; ++i) {
+      const int r = q - i;  // row of the current block under this dy
+      if (r < 0 || r >= kMb) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          acc[i][j] = sad4(al[j][k], c[4 * r + k], acc[i][j]);
+    }
+  }
+
+  // Which of the thread's offsets are in the search and inside the
+  // picture: all-ones penalties for the others, so that `acc | pen` never
+  // wins.  The winner always lies inside ((0, 0) does), so an offset off
+  // the picture can never be the first minimum.
+  const int x0 = xt + kMb * m;
+  const int di_lo = max(0, search - y0);        // dy >= -y0
+  const int di_hi = min(side - 1, search + height - kMb - y0);
+  const int dx_lo = max(-search, -x0);
+  const int dx_hi = min(search, width - kMb - x0);
+  uint32_t row_pen[kTileDy], col_pen[4];
+#pragma unroll
+  for (int i = 0; i < kTileDy; ++i) {
+    const int di = kTileDy * t + i;
+    row_pen[i] = m < n_here && di >= di_lo && di <= di_hi ? 0u : ~0u;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int dx = 4 * g + j - 16;
+    col_pen[j] = dx >= dx_lo && dx <= dx_hi ? 0u : ~0u;
+  }
+  // offsets in increasing o, so a strict < keeps the first minimum
+  const int o0 = kTileDy * t * side + 4 * g - 16 + search;
+  uint32_t best = ~0u;
+  int best_o = -1;
+#pragma unroll
+  for (int i = 0; i < kTileDy; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t v = acc[i][j] | row_pen[i] | col_pen[j];
+      if (v < best) {
+        best = v;
+        best_o = o0 + i * side + j;
       }
-      sad = (int)acc;
     }
-    if (sad_map != nullptr)
-      sad_map[((size_t)stream * n_off + o) * n_mb + mb] = sad;
-    if (dy == 0 && dx == 0) sad0[(size_t)stream * n_mb + mb] = sad;
-    const unsigned long long key =
-        ((unsigned long long)(uint32_t)sad << 32) | (uint32_t)o;
-    best = key < best ? key : best;
   }
-
-  // Lexicographic (sad, offset) minimum: warp shuffles, then warp 0.
+  const size_t at0 = (size_t)stream * n_mb + mb_row * mb_cols + mc0;
+  if (m < n_here && t == search / kTileDy && g == 4) {
+    uint32_t v = 0;  // dy = dx = 0: i = search % kTileDy, j = 0
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const unsigned long long other = __shfl_down_sync(0xffffffffu, best, d);
-    best = other < best ? other : best;
+    for (int i = 0; i < kTileDy; ++i)
+      if (i == search % kTileDy) v = acc[i][0];
+    sad0[at0 + m] = (int)v;
   }
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  if (lane == 0) warp_best[warp] = best;
+  if (kMap) {
+    __syncthreads();  // the map aliases the window copies
+#pragma unroll
+    for (int i = 0; i < kTileDy; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int di = kTileDy * t + i;
+        const int dx = 4 * g + j - 16;
+        if (m < n_here && di < side && dx >= -search && dx <= search)
+          map_s[(di * side + dx + search) * mb_tile + m] =
+              (row_pen[i] | col_pen[j]) ? kInvalid : (int)acc[i][j];
+      }
+    }
+  }
+  keys[tid] = best_o < 0 ? ~0ull
+                         : ((unsigned long long)best << 32) | (uint32_t)best_o;
   __syncthreads();
-  if (warp == 0) {
-    best = lane < kThreads / 32 ? warp_best[lane] : ~0ull;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const unsigned long long other = __shfl_down_sync(0xffffffffu, best, d);
-      best = other < best ? other : best;
+
+  // the lexicographic (sad, o) minimum per MB: over dx groups, then dy tiles
+  if (threadIdx.x == 0) {
+    unsigned long long b = keys[tid];
+    for (int x = 1; x < n_dxg; ++x) b = keys[tid + x] < b ? keys[tid + x] : b;
+    keys[tid] = b;
+  }
+  __syncthreads();
+  if (tid < n_here) {
+    unsigned long long b = ~0ull;
+    for (int tt = 0; tt < n_dyt; ++tt) {
+      const unsigned long long k = keys[(tt * mb_tile + tid) * n_dxg];
+      b = k < b ? k : b;
     }
-    if (lane == 0) {
-      const int o = (int)(best & 0xffffffffu);
-      const size_t at = (size_t)stream * n_mb + mb;
-      best_sad[at] = (int)(best >> 32);
-      mv[2 * at + 0] = o % side - search;  // mvx
-      mv[2 * at + 1] = o / side - search;  // mvy
+    const int o = (int)(b & 0xffffffffu);
+    best_sad[at0 + tid] = (int)(b >> 32);
+    mv[2 * (at0 + tid) + 0] = o % side - search;  // mvx
+    mv[2 * (at0 + tid) + 1] = o / side - search;  // mvy
+  }
+  if (kMap) {
+    // each offset's row of the map: the tile's MBs are consecutive
+    const int n_off = side * side;
+    int32_t* out = sad_map + (size_t)stream * n_off * n_mb + mb_row * mb_cols
+                   + mc0;
+    for (int i = tid; i < n_off * n_here; i += n_threads) {
+      const int o = i / n_here;
+      const int mm = i - o * n_here;
+      out[(size_t)o * n_mb + mm] = map_s[o * mb_tile + mm];
     }
   }
 }
@@ -258,66 +472,106 @@ sad_map_f32_kernel(const uint8_t* __restrict__ cur,
 
 // ----------------------------------------------------------------- K3: rp
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRpMaxThreads)
 sad_map_rp_kernel(const uint8_t* __restrict__ cur,
                   const uint8_t* __restrict__ ref, int height, int width,
-                  int search, int32_t* __restrict__ out) {
-  __shared__ int colsum[kSideMax * kRpMaxWidth];
-
+                  int search, int dy_per_block, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int words = width / 4;                     // column words per row
+  const int row_words = words + 2 * kRpHaloWords;  // a staged reference row
   const int side = 2 * search + 1;
   const int n_off = side * side;
-  const int dyi = blockIdx.x;
-  const int dy = dyi - search;
+  const int dyi0 = blockIdx.x * dy_per_block;      // first dy + search
+  const int n_dy = min(dy_per_block, side - dyi0);
   const int mb_row = blockIdx.y;
   const int stream = blockIdx.z;
   const int y0 = mb_row * kMb;
   const int mb_cols = width / kMb;
   const int n_mb = mb_cols * (height / kMb);
   const size_t plane = (size_t)height * width;
-  int32_t* out_s = out + (size_t)stream * n_off * n_mb;
+  const uint8_t* cur_plane = cur + stream * plane;
+  const uint8_t* ref_plane = ref + stream * plane;
+  uint32_t* cur_s = smem;                          // 16 rows
+  uint32_t* ref_s = cur_s + kMb * words;           // n_dy + 15 rows
+  int32_t* out_s = out + (size_t)stream * n_off * n_mb + mb_row * mb_cols;
 
-  if (y0 + dy < 0 || y0 + dy + kMb > height) {
-    // the whole MB row's window leaves the picture at this dy
-    for (int i = threadIdx.x; i < side * mb_cols; i += kThreads)
-      out_s[(size_t)(dyi * side + i / mb_cols) * n_mb + mb_row * mb_cols +
-            i % mb_cols] = kInvalid;
-    return;
+  // current rows, then reference rows y0 + dy .. with 16 bytes of halo
+  const int chunks = width / 16;
+  for (int i = threadIdx.x; i < kMb * chunks; i += blockDim.x) {
+    const int r = i / chunks;
+    const int c = i % chunks;
+    cp_async16(cur_s + r * words + 4 * c,
+               cur_plane + (size_t)(y0 + r) * width + 16 * c, true);
   }
-
-  // pass 1: colsum[dx][x] = sum over the 16 rows of |cur - ref(dx)|
-  const uint8_t* cur_rows = cur + stream * plane + (size_t)y0 * width;
-  const uint8_t* ref_rows = ref + stream * plane + (size_t)(y0 + dy) * width;
-  for (int x = threadIdx.x; x < width; x += kThreads) {
-    int c[kMb];
-#pragma unroll
-    for (int r = 0; r < kMb; ++r) c[r] = cur_rows[r * width + x];
-    for (int dxi = 0; dxi < side; ++dxi) {
-      const int xr = x + dxi - search;
-      int acc = 0;
-      if (xr >= 0 && xr < width) {
-#pragma unroll
-        for (int r = 0; r < kMb; ++r)
-          acc += abs(c[r] - (int)__ldg(ref_rows + r * width + xr));
-      }
-      colsum[dxi * width + x] = acc;
-    }
+  const int ref_rows = n_dy + kMb - 1;
+  for (int i = threadIdx.x; i < ref_rows * (chunks + 2); i += blockDim.x) {
+    const int r = i / (chunks + 2);
+    const int c = i % (chunks + 2);
+    const int py = y0 + dyi0 - search + r;
+    const int px = 16 * c - 16;
+    const bool inside = py >= 0 && py < height && px >= 0 && px < width;
+    cp_async16(ref_s + r * row_words + 4 * c,
+               inside ? ref_plane + (size_t)py * width + px : ref_plane,
+               inside);
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  // pass 2: pool 16 column sums per MB; starting each MB's walk at column
-  // (mb column) mod 16 spreads neighbouring threads over the banks
-  for (int i = threadIdx.x; i < side * mb_cols; i += kThreads) {
-    const int dxi = i / mb_cols;
-    const int mc = i % mb_cols;
-    const int x0 = mc * kMb;
-    int sad = kInvalid;
-    if (window_inside(y0, x0, dy, dxi - search, height, width)) {
-      const int* p = colsum + dxi * width + x0;
-      sad = 0;
+  const int k = threadIdx.x;  // pixel columns 4k .. 4k+3
+  const bool active = k < words;
+  uint32_t c[kMb];
 #pragma unroll
-      for (int k = 0; k < kMb; ++k) sad += p[(k + mc) & (kMb - 1)];
+  for (int r = 0; r < kMb; ++r) c[r] = active ? cur_s[r * words + k] : 0;
+  const int kc = active ? k : 0;  // idle lanes read a valid word
+
+  for (int u = 0; u < n_dy; ++u) {
+    const int dyi = dyi0 + u;
+    const int dy = dyi - search;
+    if (y0 + dy < 0 || y0 + dy + kMb > height) {
+      // the whole MB row's window leaves the picture at this dy
+      for (int i = threadIdx.x; i < side * mb_cols; i += blockDim.x)
+        out_s[(size_t)(dyi * side + i / mb_cols) * n_mb + i % mb_cols] =
+            kInvalid;
+      continue;
     }
-    out_s[(size_t)(dyi * side + dxi) * n_mb + mb_row * mb_cols + mc] = sad;
+    // For dx = d - 15: odd[d] holds the 16-row sums of columns 1 and 3 as
+    // 16-bit fields; all[d] sums the packed abs-diff words mod 2^32, so
+    // all - (odd << 8) leaves those of columns 0 and 2.
+    uint32_t all[kRpSide], odd[kRpSide];
+#pragma unroll
+    for (int d = 0; d < kRpSide; ++d) all[d] = odd[d] = 0;
+    const uint32_t* p = ref_s + u * row_words + kc;
+#pragma unroll
+    for (int r = 0; r < kMb; ++r) {
+      uint32_t w[9];  // staged bytes 4k .. 4k+35 = picture x-16 .. x+19
+#pragma unroll
+      for (int i = 0; i < 9; ++i) w[i] = p[r * row_words + i];
+#pragma unroll
+      for (int d = 0; d < kRpSide; ++d) {
+        const int b = d + 1;  // staged byte of dx = d - 15, past 4k
+        const uint32_t rw =
+            (b & 3) ? __funnelshift_r(w[b >> 2], w[(b >> 2) + 1], 8 * (b & 3))
+                    : w[b >> 2];
+        const uint32_t ad = __vabsdiffu4(rw, c[r]);
+        all[d] += ad;
+        odd[d] += __byte_perm(ad, 0, 0x4341);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < kRpSide; ++d) {
+      // columns 0+1 and 2+3 as 16-bit fields
+      const uint32_t f = all[d] - (odd[d] << 8) + odd[d];
+      int sum = (int)((f & 0xFFFFu) + (f >> 16));
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);  // the MB's 16 columns
+      const int dx = d - kMargin;
+      if (active && (k & 3) == 0 && dx >= -search && dx <= search) {
+        const int mc = k >> 2;
+        const int x0 = mc * kMb;
+        out_s[(size_t)(dyi * side + dx + search) * n_mb + mc] =
+            (x0 + dx >= 0 && x0 + dx + kMb <= width) ? sum : kInvalid;
+      }
+    }
   }
 }
 
@@ -432,21 +686,36 @@ int launch_map(MapKernel kernel, dim3 grid, const void* cur, const void* ref,
 }  // namespace
 
 // Plain C entry points for ctypes.  cur/ref: (streams, height, width) uint8,
-// contiguous and 4-byte aligned, on the current device.  Each launches on
-// `stream`, does not synchronise, and returns the cudaGetLastError() code of
-// the launch (0 on success).
+// contiguous on the current device (16-byte aligned for the search and rp,
+// which stage with cp.async; 4-byte aligned for the others).  Each launches
+// on `stream`, does not synchronise, and returns the cudaGetLastError()
+// code of the launch (0 on success, cudaErrorInvalidValue for arguments or
+// a geometry it does not take).
 
 // Outputs int32: mv (streams, nMB, 2), best_sad and sad0 (streams, nMB),
-// sad_map (streams, (2s+1)^2, nMB) or NULL.
+// sad_map (streams, (2s+1)^2, nMB) or NULL.  The geometry comes from
+// kernels/me_cuda.py::search_tiles.
 extern "C" int p64_sad_search(const void* cur, const void* ref, int streams,
-                              int height, int width, int search, void* mv,
-                              void* best_sad, void* sad0, void* sad_map,
-                              void* stream) {
+                              int height, int width, int search,
+                              int tiles_per_row, int mb_tile, int g_lo,
+                              int n_dxg, int n_dyt, void* mv, void* best_sad,
+                              void* sad0, void* sad_map, void* stream) {
   if (int rc = check_args(streams, height, width, search)) return rc;
-  const dim3 grid((height / kMb) * (width / kMb), streams);
-  sad_search_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const bool with_map = sad_map != nullptr;
+  const size_t smem =
+      search_smem_bytes(mb_tile, n_dxg, n_dyt, search, with_map);
+  if (mb_tile < 1 || n_dxg < 1 || n_dyt < 1 || g_lo < 0 ||
+      g_lo + n_dxg > 8 || kTileDy * n_dyt < 2 * search + 1 ||
+      tiles_per_row * mb_tile < width / kMb ||
+      n_dxg * mb_tile * n_dyt > kThreads || smem > (size_t)kStaticSmem)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles_per_row, height / kMb, streams);
+  const dim3 block(n_dxg, mb_tile, n_dyt);
+  const auto kernel =
+      with_map ? sad_search_kernel<true> : sad_search_kernel<false>;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref),
-      height, width, search, static_cast<int32_t*>(mv),
+      height, width, search, g_lo, static_cast<int32_t*>(mv),
       static_cast<int32_t*>(best_sad), static_cast<int32_t*>(sad0),
       static_cast<int32_t*>(sad_map));
   return (int)cudaGetLastError();
@@ -462,14 +731,26 @@ extern "C" int p64_sad_map_f32(const void* cur, const void* ref, int streams,
                     height, width, search, out, stream);
 }
 
+// rp's geometry comes from kernels/me_variants_cuda.py::rp_geometry.
 extern "C" int p64_sad_map_rp(const void* cur, const void* ref, int streams,
-                              int height, int width, int search, void* out,
+                              int height, int width, int search,
+                              int dy_per_block, int threads, void* out,
                               void* stream) {
   if (int rc = check_args(streams, height, width, search)) return rc;
-  if (width > kRpMaxWidth) return (int)cudaErrorInvalidValue;
-  return launch_map(sad_map_rp_kernel,
-                    dim3(2 * search + 1, height / kMb, streams), cur, ref,
-                    height, width, search, out, stream);
+  const int side = 2 * search + 1;
+  const size_t smem = 4 * ((size_t)kMb * (width / 4) +
+                           (size_t)(dy_per_block + kMb - 1) *
+                               (width / 4 + 2 * kRpHaloWords));
+  if (width > kRpMaxWidth || dy_per_block < 1 || threads % 32 != 0 ||
+      threads < width / 4 || threads > kRpMaxThreads ||
+      smem > (size_t)kStaticSmem)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((side + dy_per_block - 1) / dy_per_block, height / kMb,
+                  streams);
+  sad_map_rp_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref),
+      height, width, search, dy_per_block, static_cast<int32_t*>(out));
+  return (int)cudaGetLastError();
 }
 
 extern "C" int p64_sad_map_i8(const void* cur, const void* ref, int streams,

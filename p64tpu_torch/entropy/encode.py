@@ -19,9 +19,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from p64tpu.entropy.bitio import BitWriter
-from p64tpu.spec import luts
-from p64tpu.spec.constants import (
+from ..entropy.bitio import BitWriter
+from ..spec import luts
+from ..spec.constants import (
     GBSC_BITS,
     GBSC_VALUE,
     GN_BITS,
@@ -35,7 +35,6 @@ from p64tpu.spec.constants import (
     Format,
     ptype_value,
 )
-
 from ..core.blocks import transmission_order
 from ..native import load
 

@@ -16,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from p64tpu.spec import luts
-from p64tpu.spec.constants import (
+from ..spec import luts
+from ..spec.constants import (
     GBSC_BITS,
     GN_BITS,
     GQUANT_BITS,
@@ -27,7 +27,6 @@ from p64tpu.spec.constants import (
     PTYPE_BITS,
     TR_BITS,
 )
-
 from ..utils import device_const
 
 PICTURE_HEADER_BITS = PSC_BITS + TR_BITS + PTYPE_BITS + PEI_BITS

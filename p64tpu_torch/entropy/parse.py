@@ -18,15 +18,14 @@ from typing import List
 
 import numpy as np
 
-from p64tpu.entropy.bitio import BitReader
-from p64tpu.spec import luts
-from p64tpu.spec.constants import (
+from ..entropy.bitio import BitReader
+from ..spec import luts
+from ..spec.constants import (
     CIF,
     MBS_PER_GOB,
     QCIF,
     Format,
 )
-
 from ..core.blocks import transmission_order
 
 

@@ -3,15 +3,19 @@
 Each `csrc/*.cu` file is compiled on first use into a shared library with a
 plain C interface:
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-       -Xcompiler -fPIC -o build/kernels/<name>.so csrc/<name>.cu
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
+       -shared -Xcompiler -fPIC -o build/kernels/<name>.so csrc/<name>.cu
 
-The host bit-I/O engine is the JAX package's C++ source, compiled in place
-(never copied, so it stays the one source of the byte contract) with the
-flags of its Makefile:
+`-Xptxas -v` makes ptxas report each kernel's registers, shared memory and
+spills; `ptxas_report(name)` returns those lines of the last build.
+
+The host bit-I/O engine is the port's copy of the JAX package's C++ source
+(`csrc/bitio.cpp`, held byte-identical to `p64tpu/native/bitio.cpp` by
+tests/test_torch_imports.py, so both engines keep one byte contract),
+compiled with the flags of the JAX package's Makefile:
 
   g++ -O3 -Wall -Wextra -fPIC -std=c++17 -shared
-      -o build/native/libp64bitio.so p64tpu/native/bitio.cpp
+      -o build/native/libp64bitio.so p64tpu_torch/csrc/bitio.cpp
 
 The build directory (`build/` at the repository root) is git-ignored; a
 library is rebuilt when its source is newer.  A missing compiler, a failed
@@ -36,11 +40,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: where the CUDA toolkit puts nvcc when neither CUDA_HOME nor PATH says
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
-#: the bit-I/O engine's source (the JAX package's) and its library
-NATIVE_SOURCE = os.path.join(_REPO, "p64tpu", "native", "bitio.cpp")
+#: the bit-I/O engine's source and its library
+NATIVE_SOURCE = os.path.join(CSRC, "bitio.cpp")
 NATIVE_BUILD_DIR = os.path.join(_REPO, "build", "native")
 NATIVE_LIB = "libp64bitio.so"
-#: `p64tpu/native/Makefile`'s CXXFLAGS plus -shared
+#: the JAX package's `native/Makefile` CXXFLAGS plus -shared
 CXX_FLAGS = ["-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -89,8 +93,8 @@ def find_cxx() -> str:
 
 
 def nvcc_command(nvcc: str, source: str, out: str) -> List[str]:
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", out, source]
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+            "-shared", "-Xcompiler", "-fPIC", "-o", out, source]
 
 
 def cxx_command(cxx: str, source: str, out: str) -> List[str]:
@@ -118,6 +122,8 @@ def _compile(source: str, out: str, find: Callable[[], str],
             raise BuildError(
                 f"{os.path.basename(tool)} failed on {source} (exit "
                 f"{r.returncode}):\n{r.stdout}{r.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(r.stdout + r.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -133,9 +139,20 @@ def build(name: str) -> str:
                     nvcc_command)
 
 
+def ptxas_report(name: str) -> List[str]:
+    """The ptxas lines (registers, shared memory, spills per kernel) of the
+    last build of csrc/<name>.cu; empty if the log is missing."""
+    log = os.path.join(BUILD_DIR, name + ".so.log")
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return [ln.strip() for ln in f
+                if "ptxas info" in ln or "bytes stack frame" in ln]
+
+
 def build_native() -> str:
     """Compile the bit-I/O engine if its library is missing or stale;
-    returns the library path (under NATIVE_BUILD_DIR, never p64tpu/)."""
+    returns the library path (under NATIVE_BUILD_DIR)."""
     return _compile(NATIVE_SOURCE, os.path.join(NATIVE_BUILD_DIR, NATIVE_LIB),
                     find_cxx, cxx_command)
 

@@ -24,8 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from p64tpu.spec.zigzag import ZIGZAG
-
+from ..spec.zigzag import ZIGZAG
 from ..utils import device_const
 
 SCALE_BITS = 13

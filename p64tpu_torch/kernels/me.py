@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from p64tpu.spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
-
+from ..spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
 from .me_cuda import sad_search_cuda
 
 #: SAD given to offsets whose window leaves the picture

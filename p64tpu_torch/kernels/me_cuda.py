@@ -6,6 +6,10 @@ writes the dense (S, 961, nMB) SAD map only when asked (`with_map=True`,
 for parity checks against the plain `me.sad_map`).  See the source for
 what bounds it and how it is laid out.
 
+`search_tiles` computes the kernel's launch geometry (MB tiles, the word
+columns and dy tiles a thread owns); tests/test_torch_me_tiles.py walks it
+as the kernel does.
+
 The same library holds the four SAD-map kernels that `me_variants_cuda`
 wraps; both share its loader, argument check and launch helper here.
 """
@@ -13,13 +17,13 @@ wraps; both share its loader, argument check and launch helper here.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
 import torch
 
-from p64tpu.spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
-
+from ..spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
 from . import _build
 
 #: kernel launches since the count was last reset (a run that claims to
@@ -29,6 +33,69 @@ LAUNCHES = 0
 #: the library's SAD-map kernels (entry points p64_<name>)
 MAP_KERNELS = ("sad_map_f32", "sad_map_rp", "sad_map_i8", "sad_map_swar")
 
+#: the kernel's limits (csrc/sad_search.cu kThreads, kTileDy, kStaticSmem)
+THREADS, TILE_DY, SMEM_LIMIT = 256, 8, 48 * 1024
+#: byte alignments of the window the kernel keeps in shared memory
+ALIGNS = 4
+#: most MBs one block's window serves
+MAX_TILE_MBS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchTiles:
+    """Launch geometry of the search kernel for one (H, W, search).
+
+    A block serves `mb_tile` horizontally adjacent MBs of one MB row
+    (`tiles_per_row` blocks per row, the last one ragged when mb_tile does
+    not divide the MB columns).  Per MB, `n_dxg` threads own word columns
+    g_lo .. g_lo + n_dxg - 1 of the window, byte columns 4g .. 4g+3, i.e.
+    dx = 4g + j - 16 for j in 0..3, and `n_dyt` dy tiles own dy + search =
+    TILE_DY t + i for i below TILE_DY.  The block is (dx group, MB, dy
+    tile), dx group fastest; the grid (tile, MB row, stream)."""
+
+    tiles_per_row: int
+    mb_tile: int
+    g_lo: int
+    n_dxg: int
+    n_dyt: int
+
+    @property
+    def threads(self) -> int:
+        return self.n_dxg * self.mb_tile * self.n_dyt
+
+    def smem_bytes(self, search: int, with_map: bool) -> int:
+        """Dynamic shared memory of one block (the kernel's layout): the
+        window in ALIGNS byte alignments, which the tile's map reuses, the
+        current rows and one 8-byte key per thread."""
+        win = 4 * ALIGNS * ((TILE_DY * self.n_dyt + MB_SIZE - 1)
+                            * (4 * self.mb_tile + 8))
+        side = 2 * search + 1
+        tile_map = 16 * -(-side * side * self.mb_tile // 4) if with_map else 0
+        return (max(win, tile_map) + 4 * MB_SIZE * 4 * self.mb_tile
+                + 8 * self.threads)
+
+    def args(self) -> Tuple[int, ...]:
+        return (self.tiles_per_row, self.mb_tile, self.g_lo, self.n_dxg,
+                self.n_dyt)
+
+
+def search_tiles(height: int, width: int, search: int) -> SearchTiles:
+    """The tile geometry for (H, W) planes and a search range: word
+    columns covering byte columns 16 - search .. 16 + search, dy tiles
+    covering the 2 search + 1 dy, and as many MBs per block as 256
+    threads, MAX_TILE_MBS and the shared memory of map mode allow."""
+    g_lo = (16 - search) // 4
+    n_dxg = (16 + search) // 4 - g_lo + 1
+    n_dyt = -(-(2 * search + 1) // TILE_DY)
+    mb_cols = width // MB_SIZE
+    mb_tile = max(1, min(THREADS // (n_dxg * n_dyt), mb_cols, MAX_TILE_MBS))
+    while True:
+        tiles = SearchTiles(-(-mb_cols // mb_tile), mb_tile, g_lo, n_dxg,
+                            n_dyt)
+        if mb_tile == 1 or tiles.smem_bytes(search, True) <= SMEM_LIMIT:
+            return tiles
+        mb_tile -= 1
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -37,11 +104,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("sad_search")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     planes = [ptr, ptr, i32, i32, i32, i32]  # cur, ref, S, H, W, search
-    lib.p64_sad_search.argtypes = planes + [ptr] * 5
+    lib.p64_sad_search.argtypes = planes + [i32] * 5 + [ptr] * 5
     lib.p64_sad_search.restype = i32
     for name in MAP_KERNELS:
         fn = getattr(lib, "p64_" + name)
-        fn.argtypes = planes + [ptr, ptr]
+        extra = [i32, i32] if name == "sad_map_rp" else []
+        fn.argtypes = planes + extra + [ptr, ptr]
         fn.restype = i32
     lib.p64_cuda_error_string.argtypes = [i32]
     lib.p64_cuda_error_string.restype = ctypes.c_char_p
@@ -49,9 +117,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_planes(kernel: str, cur_y: torch.Tensor, ref_y: torch.Tensor,
-                 search: int) -> Tuple[int, int, int]:
+                 search: int, align: int = 4) -> Tuple[int, int, int]:
     """Raise ValueError unless cur_y and ref_y are (S, H, W) uint8 CUDA
-    tensors the kernels take; returns (S, H, W)."""
+    tensors the kernels take, `align`-byte aligned (16 for the kernels
+    that stage with cp.async); returns (S, H, W)."""
     for name, t in (("cur_y", cur_y), ("ref_y", ref_y)):
         if not t.is_cuda:
             raise ValueError(f"{kernel}_cuda: {name} is on {t.device}, "
@@ -62,9 +131,9 @@ def check_planes(kernel: str, cur_y: torch.Tensor, ref_y: torch.Tensor,
         if t.dim() != 3:
             raise ValueError(f"{kernel}_cuda: {name} has shape "
                              f"{tuple(t.shape)}, needs (S, H, W)")
-        if not t.is_contiguous() or t.data_ptr() % 4:
+        if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"{kernel}_cuda: {name} must be contiguous "
-                             "and 4-byte aligned")
+                             f"and {align}-byte aligned")
     if cur_y.shape != ref_y.shape or cur_y.device != ref_y.device:
         raise ValueError(f"{kernel}_cuda: cur_y and ref_y differ in shape "
                          "or device")
@@ -104,8 +173,9 @@ def sad_search_cuda(cur_y: torch.Tensor, ref_y: torch.Tensor,
     fourth element when with_map is set.
     """
     global LAUNCHES
-    s, h, w = check_planes("sad_search", cur_y, ref_y, search)
+    s, h, w = check_planes("sad_search", cur_y, ref_y, search, align=16)
     n_mb = (h // MB_SIZE) * (w // MB_SIZE)
+    tiles = search_tiles(h, w, search)
     side = 2 * search + 1
     dev = cur_y.device
     mv = torch.empty((s, n_mb, 2), dtype=torch.int32, device=dev)
@@ -114,8 +184,8 @@ def sad_search_cuda(cur_y: torch.Tensor, ref_y: torch.Tensor,
     sads = (torch.empty((s, side * side, n_mb), dtype=torch.int32,
                         device=dev) if with_map else None)
     launch("sad_search", dev, cur_y.data_ptr(), ref_y.data_ptr(), s, h, w,
-           search, mv.data_ptr(), best.data_ptr(), sad0.data_ptr(),
-           sads.data_ptr() if with_map else None)
+           search, *tiles.args(), mv.data_ptr(), best.data_ptr(),
+           sad0.data_ptr(), sads.data_ptr() if with_map else None)
     LAUNCHES += 1
     if with_map:
         return mv, best, sad0, sads

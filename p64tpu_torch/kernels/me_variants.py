@@ -33,8 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from p64tpu.spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
-
+from ..spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
 from ..utils import device_const
 from . import me_variants_cuda
 from .me import INVALID_SAD, _validity_mask

@@ -17,15 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from p64tpu.spec.constants import (
+from ..spec.constants import (
     COEFF_CLAMP_MAX,
     COEFF_CLAMP_MIN,
     INTRA_DC_MAX,
     INTRA_DC_MIN,
     LEVEL_CLAMP,
 )
-from p64tpu.spec.zigzag import INV_ZIGZAG, ZIGZAG
-
+from ..spec.zigzag import INV_ZIGZAG, ZIGZAG
 from ..utils import device_const
 
 _ZIGZAG = ZIGZAG.astype(np.int64)

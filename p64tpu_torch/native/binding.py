@@ -21,9 +21,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from p64tpu.spec import luts
-from p64tpu.spec.constants import CIF, QCIF, Format, ptype_value
-
+from ..spec import luts
+from ..spec.constants import CIF, QCIF, Format, ptype_value
 from ..core.blocks import transmission_order
 from ..entropy.parse import ParsedFrame, StreamError
 from ..kernels import _build

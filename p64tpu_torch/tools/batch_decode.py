@@ -18,8 +18,7 @@ import sys
 import time
 from typing import List
 
-from p64tpu.io import yuv
-
+from ..io import yuv
 from ..utils import expand_inputs, fan_map
 
 

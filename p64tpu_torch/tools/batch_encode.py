@@ -23,8 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from p64tpu.io import yuv
-
+from ..io import yuv
 from ..control.ratecontrol import RateConfig
 from ..core import encoder as enc
 from ..distrib import mesh as dm

@@ -183,8 +183,8 @@ def encode_all(device: str | torch.device) -> bytes:
     at q10 and at 192 kbit/s, then CIF (3 frames of config3's content) at
     q10 and at 1.024 Mbit/s with 3 MQUANT segments.  The four sequences of
     one setting are encoded as four streams of one batch."""
-    from p64tpu.spec.constants import CIF, QCIF
-    from p64tpu.tools import golden_content as gc
+    from ..spec.constants import CIF, QCIF
+    from ..tools import golden_content as gc
 
     from ..control.ratecontrol import RateConfig
     from ..core.encoder import EncoderConfig, encode_to_bytes

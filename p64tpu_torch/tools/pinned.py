@@ -30,8 +30,8 @@ ALL_PINS = ("config1_qcif_intra_q12", "config2_qcif_inter_q12_s15",
 def pinned_case(name: str):
     """(EncoderConfig, frames with a leading stream axis of 1) of a pin,
     with the settings of the reference's `pinned_streams`."""
-    from p64tpu.spec.constants import CIF, QCIF
-    from p64tpu.tools import golden_content as gc
+    from ..spec.constants import CIF, QCIF
+    from ..tools import golden_content as gc
 
     from ..control.ratecontrol import RateConfig
     from ..core.encoder import EncoderConfig

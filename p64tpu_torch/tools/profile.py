@@ -38,7 +38,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from p64tpu.io.yuv import parse_format
+    from ..io.yuv import parse_format
 
     from ..control.ratecontrol import RateConfig
     from ..core import encoder as enc

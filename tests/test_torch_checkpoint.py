@@ -19,6 +19,7 @@ from p64tpu.spec.constants import QCIF
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import encoder as enc
 from p64tpu_torch.io import checkpoint
+from p64tpu_torch.spec.constants import QCIF as TQCIF
 
 torch.set_num_threads(1)
 
@@ -37,7 +38,7 @@ def _frames(streams, seed=21):
 
 
 def _cfgs():
-    return (enc.EncoderConfig(fmt=QCIF, search=3, rate=RateConfig(**RATE)),
+    return (enc.EncoderConfig(fmt=TQCIF, search=3, rate=RateConfig(**RATE)),
             jenc.EncoderConfig(fmt=QCIF, search=3, rate=JRateConfig(**RATE)))
 
 

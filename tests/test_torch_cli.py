@@ -9,10 +9,10 @@ import pytest
 import torch
 
 from p64tpu import cli as jcli
-from p64tpu.io import yuv
-from p64tpu.tools import golden_content as gc
 from p64tpu_torch import cli
+from p64tpu_torch.io import yuv
 from p64tpu_torch.tools import batch_decode
+from p64tpu_torch.tools import golden_content as gc
 
 torch.set_num_threads(1)
 

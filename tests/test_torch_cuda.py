@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from p64tpu.tools import golden_content as gc
 from p64tpu_torch.core import decoder, encoder
 from p64tpu_torch.kernels import me, me_cuda, me_variants, me_variants_cuda
+from p64tpu_torch.spec.constants import CIF, QCIF
+from p64tpu_torch.tools import golden_content as gc
 from p64tpu_torch.tools import pinned
 
 torch.set_num_threads(1)
@@ -29,27 +30,42 @@ def cuda():
     return torch.device("cuda")
 
 
-def _planes(seed, shape, device):
+def _planes(seed, shape, device, kind="random"):
+    """Random planes, or "near": random current planes and references
+    within +-2 of them, with a flat patch of 77 -- many tied SADs."""
     rng = np.random.default_rng(seed)
-    return (torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8),
-                            device=device),
-            torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8),
-                            device=device))
+    cur = rng.integers(0, 256, shape)
+    if kind == "near":
+        _, h, w = shape
+        cur[:, h // 4:h - h // 4, w // 4:w - w // 4] = 77
+        ref = np.clip(cur + rng.integers(-2, 3, shape), 0, 255)
+    else:
+        ref = rng.integers(0, 256, shape)
+    return (torch.as_tensor(cur.astype(np.uint8), device=device),
+            torch.as_tensor(ref.astype(np.uint8), device=device))
+
+
+#: one MB row, a small picture, QCIF and CIF (ragged last MB tiles)
+SHAPES = [(2, 16, 64), (2, 48, 64), (2, 144, 176), (3, 288, 352)]
+SEARCHES = [0, 1, 4, 7, 15]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,search", [((2, 48, 64), 4),
-                                          ((2, 144, 176), 7),
-                                          ((3, 288, 352), 15)])
-def test_kernel_map_and_search_equal_plain(cuda, shape, search):
-    cur, ref = _planes(sum(shape) + search, shape, cuda)
+@pytest.mark.parametrize("kind", ["random", "near"])
+@pytest.mark.parametrize("search", SEARCHES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_map_and_search_equal_plain(cuda, shape, search, kind):
+    cur, ref = _planes(sum(shape) + search, shape, cuda, kind)
     mv, best, sad0, sads = me_cuda.sad_search_cuda(cur, ref, search,
                                                    with_map=True)
+    fused = me_cuda.sad_search_cuda(cur, ref, search)
     torch.cuda.synchronize()
     plain = me.sad_map(cur, ref, search)
     assert torch.equal(sads, plain)
-    for got, want in zip((mv, best, sad0), me.search_from_map(plain, search)):
+    for got, got_fused, want in zip((mv, best, sad0), fused,
+                                    me.search_from_map(plain, search)):
         assert torch.equal(got, want)
+        assert torch.equal(got_fused, want)
 
 
 @pytest.mark.cuda
@@ -72,13 +88,17 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         me_cuda.sad_search_cuda(cur.transpose(1, 2), ref.transpose(1, 2), 4)
     with pytest.raises(ValueError, match="search"):
         me_cuda.sad_search_cuda(cur, ref, 16)
+    # the search stages with cp.async: 16-byte aligned planes only
+    flat = torch.zeros(48 * 64 + 4, dtype=torch.uint8, device=cuda)
+    off = flat[4:].view(1, 48, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        me_cuda.sad_search_cuda(off, off, 4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(me_variants.VARIANTS))
-@pytest.mark.parametrize("shape,search", [((2, 48, 64), 4),
-                                          ((2, 144, 176), 15),
-                                          ((3, 288, 352), 15)])
+@pytest.mark.parametrize("search", SEARCHES)
+@pytest.mark.parametrize("shape", SHAPES)
 def test_map_kernel_equals_plain(cuda, name, shape, search):
     cur, ref = _planes(sum(shape) + search, shape, cuda)
     kernel, plain = me_variants.VARIANTS[name]
@@ -132,7 +152,6 @@ def test_pin_decodes_on_the_card_as_on_the_cpu(cuda):
 
 @pytest.mark.cuda
 def test_decode_seq_batch_on_the_card_equals_encoder_recon(cuda):
-    from p64tpu.spec.constants import CIF
     from p64tpu_torch.control.ratecontrol import RateConfig
 
     one = gc.config3_cif_rc(3)
@@ -156,7 +175,6 @@ def _qcif_batch(n_streams, t):
 
 @pytest.mark.cuda
 def test_pipelined_batch_encode_on_the_card_equals_one_dispatch(cuda):
-    from p64tpu.spec.constants import QCIF
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.distrib import mesh as dm
     from p64tpu_torch.tools import batch_encode
@@ -178,7 +196,6 @@ def test_pipelined_batch_encode_on_the_card_equals_one_dispatch(cuda):
 
 @pytest.mark.cuda
 def test_outputs_to_host_copies_behind_an_event(cuda):
-    from p64tpu.spec.constants import QCIF
     from p64tpu_torch.control.ratecontrol import RateConfig
 
     cfg = encoder.EncoderConfig(fmt=QCIF, search=7,
@@ -195,7 +212,6 @@ def test_outputs_to_host_copies_behind_an_event(cuda):
 
 @pytest.mark.cuda
 def test_checkpoint_resumes_on_the_card(cuda, tmp_path):
-    from p64tpu.spec.constants import QCIF
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.io import checkpoint
 

@@ -19,12 +19,13 @@ import torch
 from helpers import random_frame_symbols
 from p64tpu.core import decoder as jdec
 from p64tpu.entropy import encode as jenc
-from p64tpu.entropy.bitio import BitReader, BitWriter
-from p64tpu.spec.constants import QCIF
-from p64tpu.spec.tables import MTYPE_BY_NAME
+from p64tpu.spec.constants import QCIF as JQCIF
 from p64tpu_torch.core import decoder as tdec
 from p64tpu_torch.entropy import encode as tenc
 from p64tpu_torch.entropy import parse as tparse
+from p64tpu_torch.entropy.bitio import BitReader, BitWriter
+from p64tpu_torch.spec.constants import QCIF
+from p64tpu_torch.spec.tables import MTYPE_BY_NAME
 
 torch.set_num_threads(1)
 
@@ -127,13 +128,13 @@ def test_decode_paths_agree_on_bitflips(seed):
     same planes through decode_stream and parse_to_tensors + decode_seq
     (or are refused by both)."""
     rng = np.random.default_rng(100 + seed)
-    frames = [random_frame_symbols(QCIF, rng, tr=k, p_mquant=0.2)
+    frames = [random_frame_symbols(JQCIF, rng, tr=k, p_mquant=0.2)
               for k in range(3)]
     ours = [tenc.FrameSymbols(**{f.name: getattr(s, f.name) for f in
                                  dataclasses.fields(tenc.FrameSymbols)})
             for s in frames]
     data = tenc.serialize_sequence(QCIF, ours)[0]
-    assert data == jenc.serialize_sequence_py(QCIF, frames)[0]
+    assert data == jenc.serialize_sequence_py(JQCIF, frames)[0]
     n_ok = 0
     for trial in range(8):
         bad = bytearray(data)

@@ -15,13 +15,14 @@ import torch
 from p64tpu.core import decoder as jdec
 from p64tpu.entropy.bitio import BitReader
 from p64tpu.entropy.parse import _scan_start_code
-from p64tpu.spec.constants import CIF, QCIF
-from p64tpu.spec.luts import MTYPE_MQUANT
-from p64tpu.tools import golden_content as gc
+from p64tpu.spec.constants import CIF as JCIF
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import decoder as tdec
 from p64tpu_torch.core import encoder as tenc
 from p64tpu_torch.entropy.parse import StreamError
+from p64tpu_torch.spec.constants import CIF, QCIF
+from p64tpu_torch.spec.luts import MTYPE_MQUANT
+from p64tpu_torch.tools import golden_content as gc
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -137,7 +138,7 @@ def test_decode_bench_mix_slice_equals_jax():
     assert all(p[0] is CIF for p in parsed)
     got = tdec.decode_seq_batch(CIF, [p[2] for p in parsed], device="cpu")
     want = jdec.decode_seq_batch(
-        CIF, [jdec.parse_to_tensors(d)[2] for d in datas])
+        JCIF, [jdec.parse_to_tensors(d)[2] for d in datas])
     for i in range(len(datas)):
         _assert_planes(got[i], want[i], f"stream {i} vs JAX")
         _assert_planes(got[i], [p[i].numpy() for p in recon],

@@ -14,14 +14,15 @@ import jax.numpy as jnp
 
 from p64tpu.control.ratecontrol import RateConfig as JRateConfig
 from p64tpu.core import encoder as jenc
-from p64tpu.io import yuv
-from p64tpu.spec.constants import QCIF
+from p64tpu.spec.constants import QCIF as JQCIF
 from p64tpu.tools import batch_encode as jbatch
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import encoder as enc
 from p64tpu_torch.core.decoder import decode_stream
 from p64tpu_torch.distrib import mesh as dm
+from p64tpu_torch.io import yuv
 from p64tpu_torch.kernels import _build
+from p64tpu_torch.spec.constants import QCIF
 from p64tpu_torch.tools import batch_encode
 
 torch.set_num_threads(1)
@@ -44,7 +45,7 @@ def _frames(n_streams, t, seed=9):
 def _cfgs(**kw):
     rate = kw.pop("rate")
     return (enc.EncoderConfig(fmt=QCIF, rate=RateConfig(**rate), **kw),
-            jenc.EncoderConfig(fmt=QCIF, rate=JRateConfig(**rate), **kw))
+            jenc.EncoderConfig(fmt=JQCIF, rate=JRateConfig(**rate), **kw))
 
 
 def _concat(sharded, key):

@@ -15,11 +15,13 @@ import jax.numpy as jnp
 from p64tpu.control.decisions import DecisionConfig as JDecisionConfig
 from p64tpu.control.ratecontrol import RateConfig as JRateConfig
 from p64tpu.core import encoder as jenc
-from p64tpu.spec.constants import QCIF
-from p64tpu.tools import golden_content as gc
+from p64tpu.spec.constants import QCIF as JQCIF
 from p64tpu_torch.control.decisions import DecisionConfig
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import encoder as enc
+from p64tpu_torch.spec import luts
+from p64tpu_torch.spec.constants import QCIF
+from p64tpu_torch.tools import golden_content as gc
 from p64tpu_torch.tools import pinned
 
 torch.set_num_threads(1)
@@ -60,13 +62,13 @@ CONFIGS = {
 
 def _configs(search, quant=8, intra_period=0, filter_with_mc=True,
              emit_recon=True, rate=None):
-    common = dict(fmt=QCIF, search=search, intra_period=intra_period,
+    common = dict(search=search, intra_period=intra_period,
                   emit_recon=emit_recon)
     rate = dict(fixed_quant=quant) if rate is None else rate
-    return (enc.EncoderConfig(rate=RateConfig(**rate),
+    return (enc.EncoderConfig(fmt=QCIF, rate=RateConfig(**rate),
                               decisions=DecisionConfig(
                                   filter_with_mc=filter_with_mc), **common),
-            jenc.EncoderConfig(rate=JRateConfig(**rate),
+            jenc.EncoderConfig(fmt=JQCIF, rate=JRateConfig(**rate),
                                decisions=JDecisionConfig(
                                    filter_with_mc=filter_with_mc), **common))
 
@@ -110,7 +112,6 @@ def test_slice_matches_jax_bytes_and_outputs(name):
         assert (final["buffer"] >= 0).all()
     if tcfg.rate.mquant_segments > 1:
         # MQUANT was signaled somewhere (an MTYPE with the MQUANT flag)
-        from p64tpu.spec import luts
         assert luts.MTYPE_MQUANT[out["mtype"].numpy()][
             out["coded"].numpy()].any()
 

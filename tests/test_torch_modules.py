@@ -20,16 +20,18 @@ from p64tpu.entropy import lengths as jlen
 from p64tpu.kernels import dct as jdct
 from p64tpu.kernels import filter as jfilter
 from p64tpu.kernels import quant as jquant
-from p64tpu.spec.constants import CIF, QCIF
+from p64tpu.spec.constants import FORMATS as JFORMATS
 from p64tpu_torch.control import decisions, ratecontrol
 from p64tpu_torch.core import blocks, predict, reconstruct
 from p64tpu_torch.entropy import lengths
 from p64tpu_torch.kernels import dct, filter as tfilter, quant
+from p64tpu_torch.spec.constants import FORMATS
 
 torch.set_num_threads(1)
 
 S = 2
-FMT = QCIF
+#: the port's QCIF for the port's functions, the JAX package's for its own
+FMT, JFMT = FORMATS["QCIF"], JFORMATS["QCIF"]
 
 
 def _t(a):
@@ -62,11 +64,12 @@ def _ref_planes(rng, fmt, streams):
 # ---------------------------------------------------------------- blocks
 
 
-@pytest.mark.parametrize("fmt", [QCIF, CIF], ids=["qcif", "cif"])
-def test_blocks_layout_matches_jax(fmt):
+@pytest.mark.parametrize("name", ["QCIF", "CIF"], ids=["qcif", "cif"])
+def test_blocks_layout_matches_jax(name):
+    fmt, jfmt = FORMATS[name], JFORMATS[name]
     rng = np.random.default_rng(1)
-    _eq(blocks.transmission_order(fmt), jblocks.transmission_order(fmt))
-    _eq(blocks.gob_of_mb(fmt), jblocks.gob_of_mb(fmt))
+    _eq(blocks.transmission_order(fmt), jblocks.transmission_order(jfmt))
+    _eq(blocks.gob_of_mb(fmt), jblocks.gob_of_mb(jfmt))
     y = rng.integers(0, 256, (S, fmt.height, fmt.width)).astype(np.int32)
     cb = rng.integers(0, 256, (S, fmt.chroma_height,
                                fmt.chroma_width)).astype(np.int32)
@@ -90,7 +93,7 @@ def test_blocks_layout_matches_jax(fmt):
     gob = blocks.to_gob_order(fmt, _t(sym))
     assert gob.shape == (S, fmt.num_gobs, 33, 6, 64)
     for i in range(S):
-        _eq(gob[i], jblocks.to_gob_order(fmt, jnp.asarray(sym[i])))
+        _eq(gob[i], jblocks.to_gob_order(jfmt, jnp.asarray(sym[i])))
         _eq(gob[i].reshape(-1, 6, 64), sym[i][blocks.transmission_order(fmt)])
     _eq(blocks.from_gob_order(fmt, gob), sym)
 
@@ -118,9 +121,9 @@ def test_mc_predict_matches_jax_select_and_gather():
     for i in range(S):
         args = (jnp.asarray(ry[i], jnp.uint8), jnp.asarray(rcb[i], jnp.uint8),
                 jnp.asarray(rcr[i], jnp.uint8), jnp.asarray(mv[i]))
-        want_sel = jpred.mc_predict(*args, jnp.asarray(fil[i]), FMT)
-        want_gat = jpred.mc_predict_gather(*args, jnp.asarray(fil[i]), FMT)
-        want_raw = jpred.mc_predict(*args, None, FMT)
+        want_sel = jpred.mc_predict(*args, jnp.asarray(fil[i]), JFMT)
+        want_gat = jpred.mc_predict_gather(*args, jnp.asarray(fil[i]), JFMT)
+        want_raw = jpred.mc_predict(*args, None, JFMT)
         for k in range(3):
             assert got[k].dtype == torch.int32
             _eq(got[k][i], want_sel[k])
@@ -297,7 +300,7 @@ def test_reconstruct_frame_matches_jax():
         _t(rcr))
     for i in range(S):
         want = jrec.reconstruct_frame(
-            FMT, jnp.asarray(lv[i]), jnp.asarray(q[i]), jnp.asarray(intra[i]),
+            JFMT, jnp.asarray(lv[i]), jnp.asarray(q[i]), jnp.asarray(intra[i]),
             jnp.asarray(mv[i]), jnp.asarray(fil[i]), jnp.asarray(ry[i]),
             jnp.asarray(rcb[i]), jnp.asarray(rcr[i]))
         for k in range(3):

@@ -20,11 +20,11 @@ import time
 import numpy as np
 import torch
 
-from p64tpu.spec.constants import QCIF
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import encoder as enc
 from p64tpu_torch.distrib import mesh as dm
 from p64tpu_torch.distrib import multihost
+from p64tpu_torch.spec.constants import QCIF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_STREAMS, N_FRAMES, SEARCH, WORLD = 4, 2, 2, 2
@@ -102,6 +102,7 @@ def _run_workers():
 def test_two_gloo_processes_match_one_process_and_jax():
     from p64tpu.control.ratecontrol import RateConfig as JRateConfig
     from p64tpu.core import encoder as jenc
+    from p64tpu.spec.constants import QCIF as JQCIF
     from p64tpu.tools import batch_encode as jbatch
 
     got = _run_workers()
@@ -114,7 +115,7 @@ def test_two_gloo_processes_match_one_process_and_jax():
                           dm.shard_batch(mesh, frames))
     streams = dm.serialize_streams(_cfg(), outputs)
     one = _summary(agg, streams, [b for _, b in streams])
-    jcfg = jenc.EncoderConfig(fmt=QCIF, search=SEARCH, emit_recon=False,
+    jcfg = jenc.EncoderConfig(fmt=JQCIF, search=SEARCH, emit_recon=False,
                               rate=JRateConfig(**RATE))
     jstreams = jbatch.encode_shard(jcfg, frames)
     assert [b for b, _ in jstreams] == [b for b, _ in streams]

@@ -16,12 +16,14 @@ from p64tpu.entropy import encode as jenc
 from p64tpu.entropy import parse as jparse
 from p64tpu.entropy.bitio import pack_symbols
 from p64tpu.native import load as jload
-from p64tpu.spec import luts
-from p64tpu.spec.constants import CIF, QCIF
+from p64tpu.spec.constants import CIF, FORMATS, QCIF
 from p64tpu_torch.entropy import encode as tenc
 from p64tpu_torch.entropy import parse as tparse
 from p64tpu_torch.kernels import _build
 from p64tpu_torch.native import binding
+from p64tpu_torch.spec import luts
+from p64tpu_torch.spec.constants import FORMATS as TFORMATS
+from p64tpu_torch.spec.constants import QCIF as TQCIF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("gquant", "coded", "intra", "mc", "fil", "quant", "mv", "cbp",
@@ -44,10 +46,13 @@ def _stream(fmt, seed, t=3, p_mquant=0.0, n_stuff=(), **kw):
     return frames
 
 
-def _assert_same_frames(got, want):
+def _assert_same_frames(got, want, formats=TFORMATS):
+    """got's frames equal want's (the JAX package's) field for field;
+    got's formats are the constants of `formats` (the port's by
+    default)."""
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
-        assert a.fmt is b.fmt and a.tr == b.tr, i
+        assert a.fmt is formats[b.fmt.name] and a.tr == b.tr, i
         assert bool(a.damaged) == bool(b.damaged), i
         for f in FIELDS:
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
@@ -91,29 +96,29 @@ def test_serialize_matches_jax_and_python(native, jnative, fmt, seed,
     frames = _stream(fmt, seed, p_mquant=p_mquant, n_stuff=n_stuff)
     want = jenc.serialize_sequence_py(fmt, frames)
     assert jnative.serialize(fmt, frames) == want
-    ours = _port_symbols(frames)
-    assert native.serialize(fmt, ours) == want
-    assert tenc.serialize_sequence(fmt, ours) == want
-    assert tenc.serialize_sequence_py(fmt, ours) == want
+    ours, tfmt = _port_symbols(frames), TFORMATS[fmt.name]
+    assert native.serialize(tfmt, ours) == want
+    assert tenc.serialize_sequence(tfmt, ours) == want
+    assert tenc.serialize_sequence_py(tfmt, ours) == want
 
 
 def test_serialize_empty_and_guards(native):
-    assert native.serialize(QCIF, []) == (b"", 0)
-    assert tenc.serialize_sequence(QCIF, []) == (b"", 0)
+    assert native.serialize(TQCIF, []) == (b"", 0)
+    assert tenc.serialize_sequence(TQCIF, []) == (b"", 0)
     base = _port_symbols(_stream(QCIF, 4, t=1, p_mquant=0.5))[0]
     coded_cbp = np.flatnonzero(base.coded & luts.MTYPE_CBP[base.mtype])
     bad = dataclasses.replace(base, cbp=base.cbp.copy())
     bad.cbp[coded_cbp[0]] = 0
     with pytest.raises(ValueError, match="CBP out of range"):
-        native.serialize(QCIF, [bad])
+        native.serialize(TQCIF, [bad])
     mq = np.flatnonzero(base.coded & luts.MTYPE_MQUANT[base.mtype])
     bad = dataclasses.replace(base, quant_mb=base.quant_mb.copy())
     bad.quant_mb[mq[0]] = 0
     with pytest.raises(ValueError, match="MQUANT"):
-        native.serialize(QCIF, [bad])
+        native.serialize(TQCIF, [bad])
     bad = dataclasses.replace(base, gquant=np.zeros(3, np.int32))
     with pytest.raises(ValueError, match="GQUANT"):
-        native.serialize(QCIF, [bad])
+        native.serialize(TQCIF, [bad])
 
 
 @pytest.mark.parametrize("fmt,seed,p_mquant,n_stuff",
@@ -127,7 +132,7 @@ def test_parse_matches_jax_and_python(native, jnative, fmt, seed, p_mquant,
     data, _ = jenc.serialize_sequence_py(
         fmt, _stream(fmt, seed, p_mquant=p_mquant, n_stuff=n_stuff))
     want = jparse.parse_stream(data)
-    _assert_same_frames(jnative.parse(data), want)
+    _assert_same_frames(jnative.parse(data), want, FORMATS)
     _assert_same_frames(native.parse(data), want)
     _assert_same_frames(native.parse(data, copy=True), want)
     _assert_same_frames(native.parse(data, resync=True), want)
@@ -135,7 +140,7 @@ def test_parse_matches_jax_and_python(native, jnative, fmt, seed, p_mquant,
 
     got_fmt, got_tr, got = native.parse_tensors(data)
     want_fmt, want_tr, want_seq = jnative.parse_tensors(data)
-    assert got_fmt is want_fmt is fmt
+    assert got_fmt is TFORMATS[fmt.name] and want_fmt is fmt
     np.testing.assert_array_equal(got_tr, want_tr)
     assert set(got) == set(want_seq)
     for k in want_seq:
@@ -189,7 +194,7 @@ def test_parse_adaptive_buffer_growth(native, jnative):
     data, _ = jenc.serialize_sequence_py(QCIF, frames)
     _assert_same_frames(native.parse(data), jparse.parse_stream(data))
     fmt, tr, seq = native.parse_tensors(data)
-    assert fmt is QCIF and seq["levels8"].shape[0] == 70
+    assert fmt is TQCIF and seq["levels8"].shape[0] == 70
     np.testing.assert_array_equal(seq["levels8"],
                                   jnative.parse_tensors(data)[2]["levels8"])
     with pytest.raises(tparse.StreamError) as got:
@@ -238,7 +243,7 @@ def test_load_raises_without_gxx(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         binding.load()
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
-        tenc.serialize_sequence(QCIF, [])
+        tenc.serialize_sequence(TQCIF, [])
     assert binding._cached is None
     assert not (tmp_path / "build").exists()
     assert sorted(os.listdir(native_dir)) == before

@@ -1,5 +1,6 @@
-"""The PyTorch port runs where JAX is not installed (the GPU host has none):
-in a fresh interpreter whose import system refuses `jax`, the port imports
+"""The PyTorch port runs where JAX is not installed (the GPU host has none)
+and without the JAX package: in a fresh interpreter whose import system
+refuses `jax`, `jaxlib`, `p64tpu` and every `p64tpu.*`, the port imports
 every module, encodes QCIF at a fixed quantizer and under rate control with
 MQUANT segments, decodes both streams through the native engine, runs the
 parity gate's SAD checks on the CPU, encodes on a mesh of two CPU shards
@@ -16,20 +17,24 @@ import importlib.abc
 import sys
 
 
+BLOCKED = ("jax", "jaxlib", "p64tpu")
+
+
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"{name} is blocked in this test")
         return None
 
 
 sys.meta_path.insert(0, _NoJax())
-try:
-    import jax  # noqa: F401
-except ImportError:
-    pass
-else:
-    raise SystemExit("the jax blocker did not work")
+for blocked in ("jax", "p64tpu", "p64tpu.spec.constants"):
+    try:
+        __import__(blocked)
+    except ImportError:
+        pass
+    else:
+        raise SystemExit(f"the blocker did not stop {blocked}")
 
 import numpy as np
 import torch
@@ -46,8 +51,8 @@ from p64tpu_torch.core import decoder, encoder
 from p64tpu_torch.entropy import parse
 from p64tpu_torch.native import load
 from p64tpu_torch.control.ratecontrol import RateConfig
-from p64tpu.spec.constants import QCIF
-from p64tpu.tools import golden_content as gc
+from p64tpu_torch.spec.constants import QCIF
+from p64tpu_torch.tools import golden_content as gc
 
 frames = {k: v[None] for k, v in gc.config1_qcif_intra().items()}
 cfg = encoder.EncoderConfig(fmt=QCIF, rate=RateConfig(fixed_quant=12))
@@ -82,7 +87,7 @@ with tempfile.TemporaryDirectory() as tmp:
     st, streams, meta = checkpoint.load(tmp + "/ck", device="cpu")
 assert streams == [sh_data[1][0]] and meta == {"frames": 2}
 assert all(torch.equal(st[k], v) for k, v in states[1].items())
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("NOJAX OK", len(data[0]))
 """
