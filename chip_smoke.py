@@ -13,7 +13,11 @@ run with a non-zero exit and no result line:
                  p64tpu_torch/csrc/sad_search.cu, and, at the same time,
                  g++-builds the bit-I/O engine from
                  p64tpu_torch/csrc/bitio.cpp; prints each kernel's ptxas
-                 registers, shared memory and spills
+                 registers, shared memory and spills, and from its SASS
+                 (cuobjdump -sass) the count of VABSDIFF4, IDP.4A, FADD,
+                 16x2 min/max, LDS and STG instructions; fails if the
+                 SWAR kernel holds byte SIMD or the f32 kernel an integer
+                 SAD instruction
   3. parity   -- CIF, search 15, 4 streams, three kinds of content: the
                  SAD-search kernel's map equals the plain torch map and an
                  int64 numpy oracle; its fused (mv, best_sad, sad0) equals
@@ -123,13 +127,27 @@ PROFILE_BATCH = (8, 4)
 #: (H100 SXM data sheet)
 INT_LANES_PER_SM, ABSDIFFS_PER_LANE = 64, 4
 MEMORY_BYTES_PER_S = 3.35e12
-#: ptxas's mangled kernel names -> the kernels' names
+#: ptxas's and cuobjdump's mangled kernel names -> the kernels' names
 PTXAS_KERNELS = (("sad_search_kernelILb0", "sad_search"),
                  ("sad_search_kernelILb1", "sad_search map mode"),
                  ("sad_map_f32_kernel", "sad_map_f32"),
                  ("sad_map_rp_kernel", "sad_map_rp"),
-                 ("sad_map_packed_kernelILb0", "sad_map_i8"),
-                 ("sad_map_packed_kernelILb1", "sad_map_swar"))
+                 ("sad_map_i8_kernel", "sad_map_i8"),
+                 ("sad_map_swar_kernel", "sad_map_swar"))
+#: SASS opcode classes counted per kernel in phase 2 (name -> test on the
+#: opcode with its modifiers)
+SASS_CLASSES = {
+    "VABSDIFF4": lambda op: op.startswith("VABSDIFF4"),
+    "IDP4A": lambda op: op.startswith("IDP.4A"),
+    "FADD": lambda op: op.split(".")[0] == "FADD",
+    "MNMX16x2": lambda op: "MNMX" in op and "16x2" in op,
+    "LDS": lambda op: op.split(".")[0] == "LDS",
+    "STG": lambda op: op.split(".")[0] == "STG",
+}
+#: SASS classes a kernel's formulation forbids: K5 is SWAR without byte
+#: SIMD, K1 float abs-diff without an integer SAD instruction
+SASS_FORBIDDEN = {"sad_map_swar": ("VABSDIFF4", "IDP4A"),
+                  "sad_map_f32": ("VABSDIFF4", "IDP4A")}
 
 
 def log(msg: str) -> None:
@@ -203,6 +221,62 @@ def ptxas_summary(lines) -> dict:
             sm = re.search(r"(\d+) bytes smem", line)
             out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def sass_opcodes(library: str) -> dict:
+    """Kernel name -> list of SASS opcodes (with modifiers) of each kernel
+    in `library`, from `cuobjdump -sass` beside nvcc; raises if the tool
+    is missing or fails."""
+    import re
+
+    from p64tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        raise AssertionError(f"no cuobjdump at {tool}: phase 2 reads the "
+                             "kernels' SASS with it")
+    r = subprocess.run([tool, "-sass", library], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"cuobjdump -sass {library} exit "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    out, name = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((n for key, n in PTXAS_KERNELS if key in m.group(1)),
+                        m.group(1))
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if m and name is not None:
+            out[name].append(m.group(2))
+    return out
+
+
+def sass_summary() -> dict:
+    """Print, per kernel of the library, its SASS instruction count and the
+    count of each SASS_CLASSES class; fail if a kernel holds a class its
+    formulation forbids.  Returns kernel name -> counts."""
+    from p64tpu_torch.kernels import _build
+
+    ops = sass_opcodes(os.path.join(_build.BUILD_DIR, KERNEL_LIB + ".so"))
+    counts = {}
+    for _, name in PTXAS_KERNELS:
+        if name not in ops:
+            raise AssertionError(f"no SASS for {name} in {KERNEL_LIB}.so")
+        c = {k: sum(map(test, ops[name])) for k, test in SASS_CLASSES.items()}
+        c["instructions"] = len(ops[name])
+        counts[name] = c
+        log(f"[build] sass {name}: " + ", ".join(f"{k} {v}"
+                                                 for k, v in c.items()))
+    for name, forbidden in SASS_FORBIDDEN.items():
+        found = {k: counts[name][k] for k in forbidden if counts[name][k]}
+        if found:
+            raise AssertionError(f"{name}'s SASS holds {found}, which its "
+                                 "formulation forbids")
+    return counts
 
 
 def bench_content(fmt, streams: int, frames_t: int, noise: int = 5):
@@ -319,6 +393,9 @@ def build_all() -> dict:
     missing = [n for _, n in PTXAS_KERNELS if n not in figures]
     if missing:
         raise AssertionError(f"no ptxas figures for {missing}")
+    sass = sass_summary()
+    for name in figures:
+        figures[name]["sass"] = sass.get(name)
     return figures
 
 

@@ -63,7 +63,8 @@
 //     in shared memory, over the window copies, and writes them as runs of
 //     consecutive MBs.
 //   * The wrapper (kernels/me_cuda.py::search_tiles) computes the tile
-//     geometry; tests/test_torch_me_tiles.py walks it on the CPU.
+//     geometry; tests/test_torch_me_tiles.py walks it on the CPU.  K1 and
+//     K5 share the tiles, the staging and the map store.
 //   * Tried and measured (PERF.md): 4 dy per thread with the alignments
 //     formed by funnel shifts in the loop, and a persistent grid that
 //     double-buffers the next tile's window; both were slower.
@@ -79,33 +80,55 @@
 //   crosses a field); a second plain add sums the packed words themselves,
 //   mod 2^32, and subtracting the first sum shifted by 8 leaves the sums of
 //   columns 0 and 2, so each row costs one byte permute, not two.  The 4
-//   column sums fold in registers and 4 threads per MB pool by shuffles.  The TPU split the column sums into 64 * hi + lo only so
-//   that its bf16 matrix unit would pool them exactly; integer sums are
-//   exact as they are.  Pictures wider than CIF are refused.
-// K1, K4, K5 (simple first versions): one block per (stream, macroblock);
-//   the 16x16 current block and the reference window (rows y0-15 ..
-//   y0+30, columns x0-16 .. x0+31) are staged once in shared memory, and
-//   each thread walks its share of the offsets.  They differ in the inner
-//   loop only:
-//     - f32 (CUDA cores, no tensor core, no TF32): the window staged as
-//       floats, float abs-diff and a float accumulator.  Exact: every
-//       partial sum is an integer <= 65,280 < 2^24.
-//     - i8: __vabsdiffu4 gives 4 packed |a - b| bytes; XOR 0x80808080
-//       turns each into the int8 ad - 128; __dp4a(word, 0x01010101, acc)
-//       pools 4 of them per instruction; + 128 * 256 per box undoes the
-//       bias.  The TPU fed the biased bytes to its int8 matrix unit.
-//     - swar: the TPU's formulation in plain 32-bit integer ops, no byte
-//       SIMD intrinsic: bytes 0,2 and 1,3 of each word become two 16-bit
-//       fields, pair_absdiff takes |u - v| per field with the 0x01000100
-//       bias, the bit-8 mask and a select, and the fields accumulate
-//       packed (<= 510 * 4 * 16 = 32,640 < 2^16) until one unpack per
-//       box.  It is the gate's check of integer SWAR against the hardware's
-//       byte SIMD, and sits at that formulation's instruction floor.
-//   i8 and swar read the reference at any byte column through a funnel-
-//   shift alignment of 32-bit words.
+//   column sums fold in registers and 4 threads per MB pool by shuffles.
+//   The TPU split the column sums into 64 * hi + lo only so that its bf16
+//   matrix unit would pool them exactly; integer sums are exact as they
+//   are.  Pictures wider than CIF are refused.
+// K1 (f32) and K5 (swar): K2's tiles and map mode, each kernel keeping the
+//   arithmetic of its TPU kernel.  A block serves up to `mb_tile` MBs of an
+//   MB row (kernels/me_variants_cuda.py::map_tiles, the same tile geometry
+//   as the search), stages their window and current rows with cp.async
+//   once, and turns them into one 32-bit element per byte column, so that
+//   the loop spends nothing on conversion or alignment.  A thread owns 4 dx
+//   x 8 dy of one MB: per window row it loads 20 elements (5 x 16 bytes)
+//   and, for each of its dy that covers the row, the MB's current row (4 x
+//   16 bytes, one address per quarter warp), which serve its 4 dx.  The map
+//   is staged in shared memory over the window and written as runs of
+//   consecutive MBs.
+//     - f32: the window and current rows as floats; per abs-diff one FADD
+//       for cur - ref and one FADD of |d| into the accumulator, on the
+//       CUDA cores (no tensor core, no TF32; no product to contract).
+//       Exact in any order: every partial sum is an integer <= 65,280 <
+//       2^24.  Its floor is those 2 FP32 instructions per abs-diff on
+//       128 FP32 lanes per SM: 0.674 ms per frame of 128 CIF streams.
+//     - swar: two pixels per 32-bit word in 16-bit fields, no byte SIMD
+//       instruction.  The window is staged as field words of bytes b and
+//       b + 2, the current rows as biased fields cb and kc (see
+//       kFieldBias); per 2 pixels one subtract (cb - ref, which ptxas
+//       emits as IMAD.IADD on the FMA pipe), one Hopper VIADDMNMX.U16x2
+//       (max(kc + ref, cb - ref) = 256 + |u - v| per field) and half an
+//       IADD3 to accumulate: 2.5 instructions per 2 pixels where the TPU's
+//       form spent 12.  A model of its floor, not measured as a whole:
+//       those 2.5 at one warp instruction per SM sub-partition per clock
+//       take 0.421 ms per frame of 128 CIF streams, and the VIADDMNMX
+//       alone, at the 55 lanes per SM per clock a probe measured on an
+//       H100, 0.39 ms; whether the pipes' sharing costs more is open.
+//       It is the gate's check of integer SWAR against the hardware's byte
+//       SIMD.
+// K4, i8 (simple first version): one block per (stream, macroblock); the
+//   16x16 current block and the reference window (rows y0-15 .. y0+30,
+//   columns x0-16 .. x0+31) are staged once in shared memory, and each
+//   thread walks its share of the offsets, reading the reference at any
+//   byte column through a funnel-shift alignment of 32-bit words.
+//   __vabsdiffu4 gives 4 packed |a - b| bytes; XOR 0x80808080 turns each
+//   into the int8 ad - 128; __dp4a(word, 0x01010101, acc) pools 4 of them
+//   per instruction; + 128 * 256 per box undoes the bias.  The TPU fed the
+//   biased bytes to its int8 matrix unit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -113,7 +136,6 @@ constexpr int kMb = 16;
 constexpr int kMargin = 15;                  // H.261 MV range
 constexpr int kWinRows = kMb + 2 * kMargin;  // 46
 constexpr int kWinWords = 12;                // 48 bytes: x0-16 .. x0+31
-constexpr int kWinCols = 4 * kWinWords;
 constexpr int kThreads = 256;
 constexpr int kInvalid = 1 << 30;
 constexpr int kStaticSmem = 48 * 1024;       // no opt-in attribute needed
@@ -184,12 +206,12 @@ __device__ __forceinline__ void stage_words(const uint32_t* cur_plane,
   }
 }
 
-// ------------------------------------------------- K2: the fused search
+// ----------------------------------- MB tiles: K2's geometry, also K1, K5
 
-// Block (n_dxg, mb_tile, n_dyt), grid (tiles per MB row, MB rows, streams),
-// from kernels/me_cuda.py::search_tiles.  Shared memory: the window in 4
-// copies, copy j shifted by j bytes (the map of a tile aliases them once
-// the search is done), the current rows, one key per thread.
+// A block serves up to mb_tile horizontally adjacent MBs of one MB row;
+// block (n_dxg, mb_tile, n_dyt), grid (tiles per MB row, MB rows, streams),
+// from kernels/me_cuda.py::tile_geometry.  Its window: rows y0 - search ..
+// (search_win_rows), byte columns xt - 16 .. (search_win_words words).
 __host__ __device__ __forceinline__ int search_win_words(int mb_tile) {
   return 4 * mb_tile + 8;
 }
@@ -198,6 +220,59 @@ __host__ __device__ __forceinline__ int search_win_rows(int n_dyt) {
   return kTileDy * n_dyt + kMb - 1;
 }
 
+// Stage the tile's window (row stride search_win_words) and its current
+// rows (row stride 4 mb_tile words) in 16-byte cp.async chunks; x0 - 16 is
+// a multiple of 16, so a chunk lies wholly inside or outside the picture,
+// and chunks outside it or past a ragged tile's last MB are zero-filled.
+__device__ __forceinline__ void stage_tile(
+    const uint8_t* cur_plane, const uint8_t* ref_plane, int height,
+    int width, int search, int y0, int xt, int mb_tile, int n_here,
+    int win_rows, uint32_t* win, uint32_t* cur_s, int tid, int n_threads) {
+  const int win_words = search_win_words(mb_tile);
+  const int win_chunks = mb_tile + 2;
+  for (int i = tid; i < win_rows * win_chunks; i += n_threads) {
+    const int r = i / win_chunks;
+    const int c = i - r * win_chunks;
+    const int py = y0 - search + r;
+    const int px = xt - 16 + 16 * c;
+    const bool inside = py >= 0 && py < height && px >= 0 && px < width;
+    cp_async16(win + r * win_words + 4 * c,
+               inside ? ref_plane + (size_t)py * width + px : ref_plane,
+               inside);
+  }
+  for (int i = tid; i < kMb * mb_tile; i += n_threads) {
+    const int r = i / mb_tile;
+    const int c = i - r * mb_tile;
+    const bool inside = c < n_here;
+    cp_async16(cur_s + r * 4 * mb_tile + 4 * c,
+               inside ? cur_plane + (size_t)(y0 + r) * width + xt + 16 * c
+                      : cur_plane,
+               inside);
+  }
+  cp_async_wait_all();
+}
+
+// Write a tile's map, staged as map_s[o * mb_tile + m], into the (streams,
+// n_off, n_mb) map: each offset's row holds the tile's MBs side by side, so
+// consecutive threads store consecutive MBs.
+__device__ __forceinline__ void store_map_tile(const int32_t* map_s,
+                                               int32_t* sad_map, int n_off,
+                                               int n_mb, int stream, int mb0,
+                                               int mb_tile, int n_here,
+                                               int tid, int n_threads) {
+  int32_t* out = sad_map + (size_t)stream * n_off * n_mb + mb0;
+  for (int i = tid; i < n_off * n_here; i += n_threads) {
+    const int o = i / n_here;
+    const int mm = i - o * n_here;
+    out[(size_t)o * n_mb + mm] = map_s[o * mb_tile + mm];
+  }
+}
+
+// ------------------------------------------------- K2: the fused search
+
+// Shared memory: the window in 4 copies, copy j shifted by j bytes (the map
+// of a tile aliases them once the search is done), the current rows, one
+// key per thread.
 __host__ __device__ __forceinline__ size_t search_smem_bytes(
     int mb_tile, int n_dxg, int n_dyt, int search, bool with_map) {
   const int side = 2 * search + 1;
@@ -248,28 +323,8 @@ sad_search_kernel(const uint8_t* __restrict__ cur,
   const uint8_t* ref_plane = ref + stream * plane;
   const uint8_t* cur_plane = cur + stream * plane;
 
-  // window rows y0 - search .., byte columns xt - 16 .., in 16-byte chunks
-  const int win_chunks = mb_tile + 2;
-  for (int i = tid; i < win_rows * win_chunks; i += n_threads) {
-    const int r = i / win_chunks;
-    const int c = i - r * win_chunks;
-    const int py = y0 - search + r;
-    const int px = xt - 16 + 16 * c;
-    const bool inside = py >= 0 && py < height && px >= 0 && px < width;
-    cp_async16(win + r * win_words + 4 * c,
-               inside ? ref_plane + (size_t)py * width + px : ref_plane,
-               inside);
-  }
-  for (int i = tid; i < kMb * mb_tile; i += n_threads) {
-    const int r = i / mb_tile;
-    const int c = i - r * mb_tile;
-    const bool inside = c < n_here;
-    cp_async16(cur_s + r * 4 * mb_tile + 4 * c,
-               inside ? cur_plane + (size_t)(y0 + r) * width + xt + 16 * c
-                      : cur_plane,
-               inside);
-  }
-  cp_async_wait_all();
+  stage_tile(cur_plane, ref_plane, height, width, search, y0, xt, mb_tile,
+             n_here, win_rows, win, cur_s, tid, n_threads);
   __syncthreads();
   // copies 1..3: the window shifted by 1..3 bytes, so the search reads
   // every byte alignment with plain loads (a row's last word is never read)
@@ -403,71 +458,229 @@ sad_search_kernel(const uint8_t* __restrict__ cur,
     mv[2 * (at0 + tid) + 0] = o % side - search;  // mvx
     mv[2 * (at0 + tid) + 1] = o / side - search;  // mvy
   }
-  if (kMap) {
-    // each offset's row of the map: the tile's MBs are consecutive
-    const int n_off = side * side;
-    int32_t* out = sad_map + (size_t)stream * n_off * n_mb + mb_row * mb_cols
-                   + mc0;
-    for (int i = tid; i < n_off * n_here; i += n_threads) {
-      const int o = i / n_here;
-      const int mm = i - o * n_here;
-      out[(size_t)o * n_mb + mm] = map_s[o * mb_tile + mm];
-    }
-  }
+  if (kMap)
+    store_map_tile(map_s, sad_map, side * side, n_mb, stream,
+                   mb_row * mb_cols + mc0, mb_tile, n_here, tid, n_threads);
 }
 
-// ---------------------------------------------------------------- K1: f32
+// ------------------------------------------------ K1: f32 and K5: swar
 
-__global__ void __launch_bounds__(kThreads)
-sad_map_f32_kernel(const uint8_t* __restrict__ cur,
-                   const uint8_t* __restrict__ ref, int height, int width,
-                   int search, int32_t* __restrict__ out) {
-  __shared__ float win[kWinRows * kWinCols];
-  __shared__ float cur_px[kMb * kMb];
+// K5's field arithmetic.  A word holds two pixels in 16-bit fields (bytes
+// x and x + 2 of a row at bits 0 and 16).  With cb = cur + 0x01000100 and
+// kc = 0x02000200 - cb = 0x01000100 - cur, both staged once per block:
+//   d1 = cb - ref        per field 256 + u - v, in 1..511: the field of cb
+//                        is >= 256 > v, so no borrow crosses a field
+//   kc + ref             per field 256 - u + v, in 1..511 (16-bit adds)
+//   max(kc + ref, d1)    = 256 + |u - v|: one VIADDMNMX.U16x2
+// and the fields accumulate those unmasked.  A thread's accumulator of one
+// offset takes 16 rows x 8 words = 128 terms per field, <= 128 x 511 =
+// 65,408 < 2^16, so no field ever carries into the next; the two fields
+// then sum to SAD + 2 x 128 x 256.
+constexpr uint32_t kFieldBias = 0x01000100u;
+constexpr int kSwarExcess = 2 * 128 * 256;
+
+// elements of one window row of K1's floats and K5's field words: one per
+// byte column of the staged window
+__host__ __device__ __forceinline__ int map_win_row(int mb_tile) {
+  return 4 * search_win_words(mb_tile);
+}
+
+// Shared memory of K1 and K5 (elements of 4 bytes): the window, one element
+// per byte column, which the tile's map aliases once it is computed; the
+// current rows, 16 elements per (row, MB); then the bytes that cp.async
+// staged, window and current rows, which the first two are made from.
+__host__ __device__ __forceinline__ size_t map_tile_smem_bytes(int mb_tile,
+                                                                int n_dyt,
+                                                                int search) {
+  const int side = 2 * search + 1;
+  const size_t win =
+      4 * (size_t)search_win_rows(n_dyt) * map_win_row(mb_tile);
+  const size_t map = 16 * (((size_t)side * side * mb_tile + 3) / 4);
+  const size_t cur = 4 * (size_t)kMb * kMb * mb_tile;
+  const size_t raw = win / 4 + (size_t)kMb * kMb * mb_tile;
+  return (win > map ? win : map) + cur + raw;
+}
+
+// one 16-byte shared load into 4 registers
+template <typename T4, typename T>
+__device__ __forceinline__ void load4(const T4* src, T* dst) {
+  const T4 v = *src;
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+
+// The map of a tile of MBs in K2's geometry: thread (x, m, t) owns dx =
+// 4 (g_lo + x) + j - 16 for j < 4 and dy + search = 8 t + i for i < 8 of MB
+// m.  It walks the 23 window rows its dy need once: per row it loads the
+// 20 window elements at byte columns 16 m + 4 g .. of that row (5 x 16
+// bytes), and for each of its dy whose 16 rows hold that row, the MB's
+// current row (4 x 16 bytes, the same for the 8 threads of an MB in a
+// quarter warp), which serve its 4 dx.
+template <bool kF32>
+__device__ __forceinline__ void sad_map_tile(const uint8_t* __restrict__ cur,
+                                             const uint8_t* __restrict__ ref,
+                                             int height, int width,
+                                             int search, int g_lo,
+                                             int32_t* __restrict__ out) {
+  using T = typename std::conditional<kF32, float, uint32_t>::type;
+  using T4 = typename std::conditional<kF32, float4, uint4>::type;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_dxg = blockDim.x;
+  const int mb_tile = blockDim.y;
+  const int n_dyt = blockDim.z;
+  const int n_threads = n_dxg * mb_tile * n_dyt;
+  const int tid = threadIdx.x + n_dxg * (threadIdx.y + mb_tile * threadIdx.z);
+  const int win_rows = search_win_rows(n_dyt);
+  const int row = map_win_row(mb_tile);
+  const int side = 2 * search + 1;
+  const int n_off = side * side;
+  const size_t win_part = (size_t)win_rows * row;
+  const size_t map_part = ((size_t)n_off * mb_tile + 3) / 4 * 4;
+  T* win = reinterpret_cast<T*>(smem);
+  T* cur_s = win + (win_part > map_part ? win_part : map_part);
+  uint32_t* raw_win =
+      reinterpret_cast<uint32_t*>(cur_s + kMb * kMb * mb_tile);
+  uint32_t* raw_cur = raw_win + win_part / 4;
+  int32_t* map_s = reinterpret_cast<int32_t*>(smem);
 
   const int mb_cols = width / kMb;
   const int n_mb = mb_cols * (height / kMb);
-  const int stream = blockIdx.y;
-  const int mb = blockIdx.x;
-  const int y0 = (mb / mb_cols) * kMb;
-  const int x0 = (mb % mb_cols) * kMb;
+  const int mb_row = blockIdx.y;
+  const int stream = blockIdx.z;
+  const int mc0 = blockIdx.x * mb_tile;
+  const int n_here = min(mb_tile, mb_cols - mc0);
+  const int y0 = mb_row * kMb;
+  const int xt = mc0 * kMb;
   const size_t plane = (size_t)height * width;
-  const uint8_t* cur_plane = cur + stream * plane;
-  const uint8_t* ref_plane = ref + stream * plane;
-
-  for (int i = threadIdx.x; i < kWinRows * kWinCols; i += kThreads) {
-    const int py = y0 - kMargin + i / kWinCols;
-    const int px = x0 - 16 + i % kWinCols;
-    float v = 0.f;
-    if (py >= 0 && py < height && px >= 0 && px < width)
-      v = (float)ref_plane[(size_t)py * width + px];
-    win[i] = v;
+  stage_tile(cur + stream * plane, ref + stream * plane, height, width,
+             search, y0, xt, mb_tile, n_here, win_rows, raw_win, raw_cur, tid,
+             n_threads);
+  __syncthreads();
+  // the window, one element per byte column b: K1 the float of byte b, K5
+  // the field word of bytes b and b + 2 (a row's last two are never read)
+  const int raw_words = (int)(win_part / 4);
+  for (int i = tid; i < raw_words; i += n_threads) {
+    const uint32_t a = raw_win[i];
+    const uint32_t b = i + 1 < raw_words ? raw_win[i + 1] : 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (kF32)
+        win[4 * i + k] = (float)((a >> (8 * k)) & 0xFFu);
+      else
+        win[4 * i + k] = __funnelshift_r(a, b, 8 * k) & 0x00FF00FFu;
+    }
   }
-  for (int i = threadIdx.x; i < kMb * kMb; i += kThreads)
-    cur_px[i] = (float)cur_plane[(size_t)(y0 + i / kMb) * width + x0 + i % kMb];
+  // current row r of MB m at cur_s[16 (r mb_tile + m)]: K1 its 16 floats,
+  // K5 cb of fields x = 0, 1, 4, 5, 8, 9, 12, 13, then kc of the same
+  for (int i = tid; i < kMb * mb_tile * 4; i += n_threads) {
+    const uint32_t w = raw_cur[i];  // pixels 4c .. 4c + 3 of row r, MB m
+    T* dst = cur_s + 16 * (i / 4);
+    const int c = i % 4;
+    if constexpr (kF32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dst[4 * c + k] = (float)((w >> (8 * k)) & 0xFFu);
+    } else {
+      const uint32_t lo = w & 0x00FF00FFu;         // pixels 4c, 4c + 2
+      const uint32_t hi = (w >> 8) & 0x00FF00FFu;  // pixels 4c + 1, 4c + 3
+      dst[2 * c] = lo + kFieldBias;
+      dst[2 * c + 1] = hi + kFieldBias;
+      dst[8 + 2 * c] = kFieldBias - lo;
+      dst[8 + 2 * c + 1] = kFieldBias - hi;
+    }
+  }
   __syncthreads();
 
-  const int side = 2 * search + 1;
-  const int n_off = side * side;
-  for (int o = threadIdx.x; o < n_off; o += kThreads) {
-    const int dy = o / side - search;
-    const int dx = o % side - search;
-    int sad = kInvalid;
-    if (window_inside(y0, x0, dy, dx, height, width)) {
-      const float* p = win + (kMargin + dy) * kWinCols + 16 + dx;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < kMb; ++r) {
-        float row = 0.f;
+  const int m = threadIdx.y;
+  const int t = threadIdx.z;
+  const int g = g_lo + threadIdx.x;
+  // acc[i][j]: dy + search = kTileDy * t + i, dx + 16 = 4 g + j
+  T acc[kTileDy][4];
 #pragma unroll
-        for (int c = 0; c < kMb; ++c)
-          row += fabsf(cur_px[r * kMb + c] - p[r * kWinCols + c]);
-        acc += row;
+  for (int i = 0; i < kTileDy; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  const T* wp = win + kTileDy * t * row + kMb * m + 4 * g;
+  const T* cp = cur_s + 16 * m;
+#pragma unroll 1
+  for (int q = 0; q < kTileRows; ++q) {
+    T p[20];  // byte columns 16 m + 4 g + 0 .. 19 of window row q
+#pragma unroll
+    for (int u = 0; u < 5; ++u)
+      load4(reinterpret_cast<const T4*>(wp + q * row) + u, p + 4 * u);
+#pragma unroll
+    for (int i = 0; i < kTileDy; ++i) {
+      const int r = q - i;  // row of the current block under this dy
+      if (r < 0 || r >= kMb) continue;
+      T c[16];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        load4(reinterpret_cast<const T4*>(cp + 16 * mb_tile * r) + u,
+              c + 4 * u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kF32) {
+#pragma unroll
+          for (int k = 0; k < kMb; ++k) acc[i][j] += fabsf(c[k] - p[j + k]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const uint32_t v = p[j + 4 * (k >> 1) + (k & 1)];
+            acc[i][j] += __viaddmax_u16x2(c[8 + k], v, c[k] - v);
+          }
+        }
       }
-      sad = (int)acc;
     }
-    out[((size_t)stream * n_off + o) * n_mb + mb] = sad;
   }
+
+  // the tile's map in shared memory, over the window, then runs of MBs
+  const int x0 = xt + kMb * m;
+  const int di_lo = max(0, search - y0);  // dy >= -y0
+  const int di_hi = min(side - 1, search + height - kMb - y0);
+  const int dx_lo = max(-search, -x0);
+  const int dx_hi = min(search, width - kMb - x0);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kTileDy; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int di = kTileDy * t + i;
+      const int dx = 4 * g + j - 16;
+      if (m < n_here && di < side && dx >= -search && dx <= search) {
+        int sad;
+        if constexpr (kF32)
+          sad = (int)acc[i][j];
+        else
+          sad = (int)((acc[i][j] & 0xFFFFu) + (acc[i][j] >> 16)) -
+                kSwarExcess;
+        const bool inside =
+            di >= di_lo && di <= di_hi && dx >= dx_lo && dx <= dx_hi;
+        map_s[(di * side + dx + search) * mb_tile + m] =
+            inside ? sad : kInvalid;
+      }
+    }
+  }
+  __syncthreads();
+  store_map_tile(map_s, out, n_off, n_mb, stream, mb_row * mb_cols + mc0,
+                 mb_tile, n_here, tid, n_threads);
+}
+
+// Blocks per SM (measured, PERF.md): K1 fits 64 registers unspilled and
+// gains from a fourth block; K5 loses with a fourth and keeps three.
+__global__ void __launch_bounds__(kThreads, 4)
+sad_map_f32_kernel(const uint8_t* __restrict__ cur,
+                   const uint8_t* __restrict__ ref, int height, int width,
+                   int search, int g_lo, int32_t* __restrict__ out) {
+  sad_map_tile<true>(cur, ref, height, width, search, g_lo, out);
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+sad_map_swar_kernel(const uint8_t* __restrict__ cur,
+                    const uint8_t* __restrict__ ref, int height, int width,
+                    int search, int g_lo, int32_t* __restrict__ out) {
+  sad_map_tile<false>(cur, ref, height, width, search, g_lo, out);
 }
 
 // ----------------------------------------------------------------- K3: rp
@@ -575,7 +788,7 @@ sad_map_rp_kernel(const uint8_t* __restrict__ cur,
   }
 }
 
-// ------------------------------------------------------- K4: i8 and K5: swar
+// ----------------------------------------------------------------- K4: i8
 
 __device__ __forceinline__ int row_i8(const uint32_t* q, int shift,
                                       const uint32_t* c, int acc) {
@@ -589,34 +802,10 @@ __device__ __forceinline__ int row_i8(const uint32_t* q, int shift,
   return acc;
 }
 
-// |u - v| of the two 16-bit fields of a and b (bytes at bits 0 and 16,
-// each 0..255): d1 = (u | 256) - v and d2 = (v | 256) - u lie in 1..511,
-// and the one with bit 8 set is 256 + |u - v|.  No borrow crosses a field.
-__device__ __forceinline__ uint32_t pair_absdiff(uint32_t a, uint32_t b) {
-  const uint32_t d1 = (a | 0x01000100u) - b;
-  const uint32_t d2 = (b | 0x01000100u) - a;
-  const uint32_t mask = ((d1 >> 8) & 0x00010001u) * 0xFFFFu;
-  return ((d1 & mask) | (d2 & ~mask)) & 0x00FF00FFu;
-}
-
-__device__ __forceinline__ uint32_t row_swar(const uint32_t* q, int shift,
-                                             const uint32_t* c,
-                                             uint32_t acc) {
-  constexpr uint32_t kLo = 0x00FF00FFu;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t w = __funnelshift_r(q[k], q[k + 1], shift);
-    acc += pair_absdiff(c[k] & kLo, w & kLo) +
-           pair_absdiff((c[k] >> 8) & kLo, (w >> 8) & kLo);
-  }
-  return acc;
-}
-
-template <bool kSwar>
 __global__ void __launch_bounds__(kThreads)
-sad_map_packed_kernel(const uint8_t* __restrict__ cur,
-                      const uint8_t* __restrict__ ref, int height, int width,
-                      int search, int32_t* __restrict__ out) {
+sad_map_i8_kernel(const uint8_t* __restrict__ cur,
+                  const uint8_t* __restrict__ ref, int height, int width,
+                  int search, int32_t* __restrict__ out) {
   __shared__ uint32_t win[kWinRows * kWinWords];
   __shared__ uint32_t cur_words[kMb * 4];
 
@@ -646,19 +835,11 @@ sad_map_packed_kernel(const uint8_t* __restrict__ cur,
       const int col = 16 + dx;  // byte column in the window
       const int shift = (col & 3) * 8;
       const uint32_t* p = win + (kMargin + dy) * kWinWords + (col >> 2);
-      if (kSwar) {
-        uint32_t acc = 0;  // two packed 16-bit field sums
+      int acc = 0;
 #pragma unroll
-        for (int r = 0; r < kMb; ++r)
-          acc = row_swar(p + r * kWinWords, shift, c + 4 * r, acc);
-        sad = (int)((acc & 0xFFFFu) + (acc >> 16));
-      } else {
-        int acc = 0;
-#pragma unroll
-        for (int r = 0; r < kMb; ++r)
-          acc = row_i8(p + r * kWinWords, shift, c + 4 * r, acc);
-        sad = acc + 128 * kMb * kMb;
-      }
+      for (int r = 0; r < kMb; ++r)
+        acc = row_i8(p + r * kWinWords, shift, c + 4 * r, acc);
+      sad = acc + 128 * kMb * kMb;
     }
     out[((size_t)stream * n_off + o) * n_mb + mb] = sad;
   }
@@ -683,11 +864,46 @@ int launch_map(MapKernel kernel, dim3 grid, const void* cur, const void* ref,
   return (int)cudaGetLastError();
 }
 
+// A tile geometry (kernels/me_cuda.py::tile_geometry) the tiled kernels
+// take: the thread grid covers byte columns 16 - search .. 16 + search and
+// the 2 search + 1 dy, the tiles cover the MB row with no empty tile, and
+// the block fits kThreads and the static shared memory.
+bool tiles_ok(int width, int search, int tiles_per_row, int mb_tile,
+              int g_lo, int n_dxg, int n_dyt, size_t smem) {
+  const int mb_cols = width / kMb;
+  return mb_tile >= 1 && n_dxg >= 1 && n_dyt >= 1 && g_lo >= 0 &&
+         g_lo + n_dxg <= 8 && 4 * g_lo <= 16 - search &&
+         4 * (g_lo + n_dxg) > 16 + search &&
+         kTileDy * n_dyt >= 2 * search + 1 &&
+         tiles_per_row * mb_tile >= mb_cols &&
+         (tiles_per_row - 1) * mb_tile < mb_cols &&
+         n_dxg * mb_tile * n_dyt <= kThreads && smem <= (size_t)kStaticSmem;
+}
+
+using TileMapKernel = void (*)(const uint8_t*, const uint8_t*, int, int, int,
+                               int, int32_t*);
+
+int launch_tile_map(TileMapKernel kernel, const void* cur, const void* ref,
+                    int streams, int height, int width, int search,
+                    int tiles_per_row, int mb_tile, int g_lo, int n_dxg,
+                    int n_dyt, void* out, void* stream) {
+  if (int rc = check_args(streams, height, width, search)) return rc;
+  const size_t smem = map_tile_smem_bytes(mb_tile, n_dyt, search);
+  if (!tiles_ok(width, search, tiles_per_row, mb_tile, g_lo, n_dxg, n_dyt,
+                smem))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(tiles_per_row, height / kMb, streams),
+           dim3(n_dxg, mb_tile, n_dyt), smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref),
+      height, width, search, g_lo, static_cast<int32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  cur/ref: (streams, height, width) uint8,
-// contiguous on the current device (16-byte aligned for the search and rp,
-// which stage with cp.async; 4-byte aligned for the others).  Each launches
+// contiguous on the current device (16-byte aligned for every kernel but
+// i8, since they stage with cp.async; 4-byte aligned for i8).  Each launches
 // on `stream`, does not synchronise, and returns the cudaGetLastError()
 // code of the launch (0 on success, cudaErrorInvalidValue for arguments or
 // a geometry it does not take).
@@ -704,10 +920,8 @@ extern "C" int p64_sad_search(const void* cur, const void* ref, int streams,
   const bool with_map = sad_map != nullptr;
   const size_t smem =
       search_smem_bytes(mb_tile, n_dxg, n_dyt, search, with_map);
-  if (mb_tile < 1 || n_dxg < 1 || n_dyt < 1 || g_lo < 0 ||
-      g_lo + n_dxg > 8 || kTileDy * n_dyt < 2 * search + 1 ||
-      tiles_per_row * mb_tile < width / kMb ||
-      n_dxg * mb_tile * n_dyt > kThreads || smem > (size_t)kStaticSmem)
+  if (!tiles_ok(width, search, tiles_per_row, mb_tile, g_lo, n_dxg, n_dyt,
+                smem))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(tiles_per_row, height / kMb, streams);
   const dim3 block(n_dxg, mb_tile, n_dyt);
@@ -721,14 +935,16 @@ extern "C" int p64_sad_search(const void* cur, const void* ref, int streams,
   return (int)cudaGetLastError();
 }
 
-// The map kernels' output: out (streams, (2s+1)^2, nMB) int32.
+// The map kernels' output: out (streams, (2s+1)^2, nMB) int32.  K1's and
+// K5's geometry comes from kernels/me_variants_cuda.py::map_tiles.
 extern "C" int p64_sad_map_f32(const void* cur, const void* ref, int streams,
-                               int height, int width, int search, void* out,
+                               int height, int width, int search,
+                               int tiles_per_row, int mb_tile, int g_lo,
+                               int n_dxg, int n_dyt, void* out,
                                void* stream) {
-  if (int rc = check_args(streams, height, width, search)) return rc;
-  return launch_map(sad_map_f32_kernel,
-                    dim3((height / kMb) * (width / kMb), streams), cur, ref,
-                    height, width, search, out, stream);
+  return launch_tile_map(sad_map_f32_kernel, cur, ref, streams, height, width,
+                         search, tiles_per_row, mb_tile, g_lo, n_dxg, n_dyt,
+                         out, stream);
 }
 
 // rp's geometry comes from kernels/me_variants_cuda.py::rp_geometry.
@@ -757,18 +973,19 @@ extern "C" int p64_sad_map_i8(const void* cur, const void* ref, int streams,
                               int height, int width, int search, void* out,
                               void* stream) {
   if (int rc = check_args(streams, height, width, search)) return rc;
-  return launch_map(sad_map_packed_kernel<false>,
+  return launch_map(sad_map_i8_kernel,
                     dim3((height / kMb) * (width / kMb), streams), cur, ref,
                     height, width, search, out, stream);
 }
 
 extern "C" int p64_sad_map_swar(const void* cur, const void* ref, int streams,
-                                int height, int width, int search, void* out,
+                                int height, int width, int search,
+                                int tiles_per_row, int mb_tile, int g_lo,
+                                int n_dxg, int n_dyt, void* out,
                                 void* stream) {
-  if (int rc = check_args(streams, height, width, search)) return rc;
-  return launch_map(sad_map_packed_kernel<true>,
-                    dim3((height / kMb) * (width / kMb), streams), cur, ref,
-                    height, width, search, out, stream);
+  return launch_tile_map(sad_map_swar_kernel, cur, ref, streams, height,
+                         width, search, tiles_per_row, mb_tile, g_lo, n_dxg,
+                         n_dyt, out, stream);
 }
 
 // Message for a code returned by the entry points above.

@@ -4,7 +4,7 @@ Port of `p64tpu/entropy/encode.py` (the reference module imports JAX
 through `core.blocks`).  `serialize_sequence` packs through the C++ engine
 (`native.binding`); `serialize_sequence_py` is the pure-Python oracle it is
 held to, which walks the symbol arrays in GOB/MBA transmission order and
-packs VLCs with `p64tpu.entropy.bitio.BitWriter`.  Both MUST emit exactly
+packs VLCs with `p64tpu_torch.entropy.bitio.BitWriter`.  Both MUST emit exactly
 the number of bits the device length model (`entropy.lengths`) predicts;
 the encoder asserts that on every encode.  The oracle turns the per-frame
 arrays into Python lists once, which keeps the walk free of numpy scalar

@@ -6,9 +6,10 @@ vectorized over streams and MBs; the host serializer must emit exactly
 these counts (asserted on every encode).
 
 The reference's one-hot selects and MXU table product were TPU workarounds
-for slow gathers; here they are direct indexing into the `p64tpu.spec.luts`
-tables.  That is exact because TC_LEN[:, 0] == 0 and every entry outside
-the 27 x 16 VLC block is the 20-bit escape (asserted in the reference).
+for slow gathers; here they are direct indexing into the
+`p64tpu_torch.spec.luts` tables.  That is exact because TC_LEN[:, 0] == 0
+and every entry outside the 27 x 16 VLC block is the 20-bit escape
+(asserted in the reference).
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ for parity checks against the plain `me.sad_map`).  See the source for
 what bounds it and how it is laid out.
 
 `search_tiles` computes the kernel's launch geometry (MB tiles, the word
-columns and dy tiles a thread owns); tests/test_torch_me_tiles.py walks it
-as the kernel does.
+columns and dy tiles a thread owns) through `tile_geometry`, which the K1
+and K5 map kernels share; tests/test_torch_me_tiles.py walks it as the
+kernels do.
 
 The same library holds the four SAD-map kernels that `me_variants_cuda`
 wraps; both share its loader, argument check and launch helper here.
@@ -19,7 +20,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -43,7 +44,8 @@ MAX_TILE_MBS = 32
 
 @dataclasses.dataclass(frozen=True)
 class SearchTiles:
-    """Launch geometry of the search kernel for one (H, W, search).
+    """Launch geometry of a kernel that serves MB tiles (the search, the K1
+    and K5 maps) for one (H, W, search).
 
     A block serves `mb_tile` horizontally adjacent MBs of one MB row
     (`tiles_per_row` blocks per row, the last one ragged when mb_tile does
@@ -79,11 +81,14 @@ class SearchTiles:
                 self.n_dyt)
 
 
-def search_tiles(height: int, width: int, search: int) -> SearchTiles:
-    """The tile geometry for (H, W) planes and a search range: word
-    columns covering byte columns 16 - search .. 16 + search, dy tiles
-    covering the 2 search + 1 dy, and as many MBs per block as 256
-    threads, MAX_TILE_MBS and the shared memory of map mode allow."""
+def tile_geometry(height: int, width: int, search: int,
+                  smem_bytes: Callable[[SearchTiles], int]) -> SearchTiles:
+    """The tile geometry of a kernel that serves MB tiles (the search, and
+    the K1 and K5 maps) for (H, W) planes and a search range: word columns
+    covering byte columns 16 - search .. 16 + search, dy tiles covering
+    the 2 search + 1 dy, and as many MBs per block as 256 threads,
+    MAX_TILE_MBS and the kernel's shared memory, `smem_bytes(tiles)`,
+    allow."""
     g_lo = (16 - search) // 4
     n_dxg = (16 + search) // 4 - g_lo + 1
     n_dyt = -(-(2 * search + 1) // TILE_DY)
@@ -92,28 +97,43 @@ def search_tiles(height: int, width: int, search: int) -> SearchTiles:
     while True:
         tiles = SearchTiles(-(-mb_cols // mb_tile), mb_tile, g_lo, n_dxg,
                             n_dyt)
-        if mb_tile == 1 or tiles.smem_bytes(search, True) <= SMEM_LIMIT:
+        if mb_tile == 1 or smem_bytes(tiles) <= SMEM_LIMIT:
             return tiles
         mb_tile -= 1
 
 
+def search_tiles(height: int, width: int, search: int) -> SearchTiles:
+    """The search kernel's tile geometry; its MB tile fits map mode's
+    shared memory."""
+    return tile_geometry(height, width, search,
+                         lambda t: t.smem_bytes(search, True))
+
+
+#: the C arguments every entry point starts with: cur, ref, S, H, W, search
+_PLANE_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Build and load the kernels' library and declare its C signatures,
-    once per process."""
+    """Build and load the kernels' library and declare the search's and the
+    error string's C signatures, once per process."""
     lib = _build.load("sad_search")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    planes = [ptr, ptr, i32, i32, i32, i32]  # cur, ref, S, H, W, search
-    lib.p64_sad_search.argtypes = planes + [i32] * 5 + [ptr] * 5
+    lib.p64_sad_search.argtypes = _PLANE_ARGTYPES + [i32] * 5 + [ptr] * 5
     lib.p64_sad_search.restype = i32
-    for name in MAP_KERNELS:
-        fn = getattr(lib, "p64_" + name)
-        extra = [i32, i32] if name == "sad_map_rp" else []
-        fn.argtypes = planes + extra + [ptr, ptr]
-        fn.restype = i32
     lib.p64_cuda_error_string.argtypes = [i32]
     lib.p64_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def declare_map(kernel: str, n_geometry: int) -> None:
+    """Declare the C signature of the map entry point p64_<kernel>: the
+    planes, `n_geometry` int geometry arguments, the map and the stream."""
+    fn = getattr(_lib(), "p64_" + kernel)
+    fn.argtypes = (_PLANE_ARGTYPES + [ctypes.c_int] * n_geometry
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
 
 
 def check_planes(kernel: str, cur_y: torch.Tensor, ref_y: torch.Tensor,

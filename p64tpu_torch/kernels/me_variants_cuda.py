@@ -6,13 +6,18 @@ the dense (S, (2s+1)^2, nMB) int32 map of `me.sad_map`:
   sad_map_f32_cuda   <- _sad_kernel       (float32 abs-diff, CUDA cores)
   sad_map_rp_cuda    <- _sad_kernel_rp    (16-row column sums first)
   sad_map_i8_cuda    <- _sad_kernel_i8    (biased int8 bytes, dp4a pool)
-  sad_map_swar_cuda  <- _sad_kernel_swar  (SWAR in 32-bit integer ops)
+  sad_map_swar_cuda  <- _sad_kernel_swar  (SWAR: 2 pixels per 32-bit word)
 
+K1 (f32) and K5 (swar) serve tiles of MBs in the search kernel's geometry
+(`map_tiles`, through `me_cuda.tile_geometry`) and keep their TPU kernel's
+arithmetic: K1 two FP32 adds per abs-diff, bounded by the FP32 lanes; K5
+|u - v| on 16-bit fields, 2.5 instructions per 2 pixels with Hopper's
+16x2 add-max (its floor is a model, not measured).  K3 (rp) takes one
+block per dy group and MB row (`rp_geometry`); K4 (i8) one block per MB.
 They live in the SAD-search kernel's library, and share its loader,
-argument check and launch helper (`me_cuda`).  See the source for what
-bounds them and how they are laid out.  `rp_geometry` computes the rp
-kernel's launch geometry; tests/test_torch_me_tiles.py walks it as the
-kernel does.
+argument check and launch helper (`me_cuda`); the source says what bounds
+each and how it is laid out.  tests/test_torch_me_tiles.py walks every
+geometry as the kernels do.
 """
 
 from __future__ import annotations
@@ -39,16 +44,47 @@ def rp_geometry(width: int) -> Tuple[int, int]:
     return RP_DY_PER_BLOCK, -(-(width // 4) // 32) * 32
 
 
+def map_tile_smem_bytes(tiles: me_cuda.SearchTiles, search: int) -> int:
+    """Shared memory of one K1 or K5 block (csrc/sad_search.cu
+    map_tile_smem_bytes): the window as one 4-byte element per byte column,
+    which the tile's map aliases; 16 elements per current row and MB; and
+    the bytes cp.async staged, window and current rows."""
+    rows = me_cuda.TILE_DY * tiles.n_dyt + MB_SIZE - 1
+    win = 4 * rows * (16 * tiles.mb_tile + 32)
+    side = 2 * search + 1
+    tile_map = 16 * -(-side * side * tiles.mb_tile // 4)
+    cur = 4 * MB_SIZE * MB_SIZE * tiles.mb_tile
+    return max(win, tile_map) + cur + win // 4 + cur // 4
+
+
+def map_tiles(height: int, width: int, search: int) -> me_cuda.SearchTiles:
+    """Launch geometry of K1 and K5: the search's tiles, with as many MBs
+    per block as their shared memory allows."""
+    return me_cuda.tile_geometry(
+        height, width, search, lambda t: map_tile_smem_bytes(t, search))
+
+
+def _geometry(name: str, height: int, width: int, search: int):
+    """The int geometry arguments of map kernel `name`'s entry point, after
+    (cur, ref, S, H, W, search); their count is its C signature's."""
+    if name == "sad_map_rp":
+        return rp_geometry(width)
+    if name == "sad_map_i8":
+        return ()
+    return map_tiles(height, width, search).args()
+
+
 def _map(name: str, cur_y: torch.Tensor, ref_y: torch.Tensor,
          search: int) -> torch.Tensor:
-    rp = name == "sad_map_rp"
-    s, h, w = me_cuda.check_planes(name, cur_y, ref_y, search,
-                                   align=16 if rp else 4)
+    # all but i8 stage with cp.async
+    s, h, w = me_cuda.check_planes(
+        name, cur_y, ref_y, search, align=4 if name == "sad_map_i8" else 16)
     n_mb = (h // MB_SIZE) * (w // MB_SIZE)
     side = 2 * search + 1
     out = torch.empty((s, side * side, n_mb), dtype=torch.int32,
                       device=cur_y.device)
-    extra = rp_geometry(w) if rp else ()
+    extra = _geometry(name, h, w, search)
+    me_cuda.declare_map(name, len(extra))
     me_cuda.launch(name, cur_y.device, cur_y.data_ptr(), ref_y.data_ptr(),
                    s, h, w, search, *extra, out.data_ptr())
     LAUNCHES[name] += 1

@@ -1,5 +1,5 @@
-"""The C++ bit-I/O engine (serialize, parse), built from the JAX package's
-`p64tpu/native/bitio.cpp` and bound with ctypes."""
+"""The C++ bit-I/O engine (serialize, parse), built from the port's copy
+`csrc/bitio.cpp` by `kernels._build.build_native` and bound with ctypes."""
 
 from .binding import NativeBitIO, load
 

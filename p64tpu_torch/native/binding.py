@@ -1,10 +1,11 @@
-"""ctypes binding for the C++ bit-I/O engine (`p64tpu/native/bitio.cpp`).
+"""ctypes binding for the C++ bit-I/O engine (`csrc/bitio.cpp`).
 
 Port of `p64tpu/native/binding.py` (which imports JAX through
-`core.blocks`).  The engine is compiled from the JAX package's source into
-`build/native/` by `kernels._build.build_native`; a missing compiler or a
-failed build raises, and nothing falls back to the Python serializer or
-parser.  Contracts mirror the pure-Python implementations exactly
+`core.blocks`).  The engine is compiled from the port's copy of the JAX
+package's source, `csrc/bitio.cpp`, into `build/native/` by
+`kernels._build.build_native`; a missing compiler or a failed build
+raises, and nothing falls back to the Python serializer or parser.
+Contracts mirror the pure-Python implementations exactly
 (`entropy.encode.serialize_sequence_py`, `entropy.parse.parse_stream`);
 tests assert byte-for-byte equality.
 

@@ -1,7 +1,7 @@
 """The pinned bitstreams, encoded through the port.
 
 Mirrors `p64tpu/tools/pinned.py`: all thirteen pins, with the same frozen
-content (`p64tpu.tools.golden_content`) and settings, held to the same
+content (`p64tpu_torch.tools.golden_content`) and settings, held to the same
 sha256 in `tests/pinned_goldens.json`.  Six use a fixed quantizer, seven
 rate control (two of those with mid-GOB MQUANT segments).
 """

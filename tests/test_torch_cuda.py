@@ -10,6 +10,8 @@ they also run on a GPU host without it:
         tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -138,6 +140,31 @@ def test_map_kernels_refuse_what_they_do_not_take(cuda):
     wide = torch.zeros((1, 16, 368), dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="sad_map_rp kernel launch failed"):
         me_variants_cuda.sad_map_rp_cuda(wide, wide, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sad_map_f32", "sad_map_swar"])
+def test_tiled_map_kernels_refuse_a_geometry_they_do_not_take(cuda, name):
+    """K1 and K5 take their geometry from the wrapper; one that leaves a
+    tile empty, misses dy or exceeds shared memory fails the launch."""
+    cur, ref = _planes(4, (1, 48, 64), cuda)
+    out = torch.empty((1, 81, 12), dtype=torch.int32, device=cuda)
+    good = me_variants_cuda.map_tiles(48, 64, 4)
+    me_cuda.declare_map(name, len(good.args()))
+    me_cuda.launch(name, cuda, cur.data_ptr(), ref.data_ptr(), 1, 48, 64, 4,
+                   *good.args(), out.data_ptr())
+    torch.cuda.synchronize()
+    assert torch.equal(out, me.sad_map(cur, ref, 4))
+    big = me_variants_cuda.map_tiles(288, 352, 15)
+    for bad in (dataclasses.replace(good, tiles_per_row=2),
+                dataclasses.replace(good, n_dyt=1),
+                dataclasses.replace(good, g_lo=good.g_lo + 1),
+                dataclasses.replace(big, mb_tile=big.mb_tile + 1,
+                                    tiles_per_row=1)):
+        search = 15 if bad.n_dxg == big.n_dxg else 4
+        with pytest.raises(RuntimeError, match=f"{name} kernel launch failed"):
+            me_cuda.launch(name, cuda, cur.data_ptr(), ref.data_ptr(), 1, 48,
+                           64, search, *bad.args(), out.data_ptr())
 
 
 @pytest.mark.cuda

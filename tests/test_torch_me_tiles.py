@@ -1,8 +1,10 @@
-"""The launch geometry of the SAD-search kernel (K2) and the row-pool map
-kernel (K3), walked on the CPU as the kernels walk it: every (offset, MB)
-of the (2s+1)^2 x nMB map gets exactly one key or map entry, each key's
-offset index is `me.offset_table(s)`'s row of its (dy, dx), and the
-geometry fits the kernels' limits."""
+"""The launch geometry of the SAD-search kernel (K2), the row-pool map
+kernel (K3) and the tiled f32 and SWAR map kernels (K1, K5), walked on the
+CPU as the kernels walk it: every (offset, MB) of the (2s+1)^2 x nMB map
+gets exactly one key or map entry, each key's offset index is
+`me.offset_table(s)`'s row of its (dy, dx), and the geometry fits the
+kernels' limits.  K5's 16-bit field arithmetic is checked exhaustively,
+and its field-word staging against the pixels the loop pairs."""
 
 import numpy as np
 import pytest
@@ -142,3 +144,169 @@ def test_rp_geometry_covers_every_offset_and_mb_once(shape, search):
     # the block's staged rows: 16 current, dy_per_block + 15 reference,
     # each reference row with a 16-byte halo on both sides
     assert 16 * w + (dpb + 15) * (w + 32) <= me_cuda.SMEM_LIMIT
+
+
+# ----------------------------------------------- K1 and K5: tiled maps
+
+def map_tile_entries(height, width, search):
+    """Every map entry K1 and K5 write, as they write it: each thread puts
+    its in-search (offset, MB) into the tile's staged map, (block, thread,
+    o, MB); then the block stores the tile as runs of consecutive MBs,
+    (block, "store", o, MB)."""
+    tl = me_variants_cuda.map_tiles(height, width, search)
+    side, mb_cols = 2 * search + 1, width // 16
+    n_off = side * side
+    for block in range(tl.tiles_per_row * (height // 16)):
+        mb_row, tile = divmod(block, tl.tiles_per_row)
+        mc0 = tile * tl.mb_tile
+        n_here = min(tl.mb_tile, mb_cols - mc0)
+        staged = {}
+        for tid in range(tl.threads):
+            m = (tid // tl.n_dxg) % tl.mb_tile
+            t = tid // (tl.n_dxg * tl.mb_tile)
+            g = tl.g_lo + tid % tl.n_dxg
+            for i in range(me_cuda.TILE_DY):
+                for j in range(4):
+                    di, dx = me_cuda.TILE_DY * t + i, 4 * g + j - 16
+                    if m < n_here and di < side and abs(dx) <= search:
+                        o = di * side + dx + search
+                        at = o * tl.mb_tile + m
+                        assert at not in staged
+                        staged[at] = o
+                        yield (block, tid, o, mb_row * mb_cols + mc0 + m)
+        for i in range(n_off * n_here):
+            o, mm = divmod(i, n_here)
+            assert staged[o * tl.mb_tile + mm] == o
+            yield (block, "store", o, mb_row * mb_cols + mc0 + mm)
+
+
+@pytest.mark.parametrize("search", SEARCHES)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_map_tiles_cover_every_offset_and_mb_once(shape, search):
+    h, w = SHAPES[shape]
+    side, n_mb = 2 * search + 1, (h // 16) * (w // 16)
+    entries = list(map_tile_entries(h, w, search))
+    written = [e for e in entries if e[1] != "store"]
+    stored = [e for e in entries if e[1] == "store"]
+    assert (_coverage(written, side, n_mb) == 1).all()
+    assert (_coverage(stored, side, n_mb) == 1).all()
+
+
+@pytest.mark.parametrize("search", SEARCHES)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_map_tiles_fit_the_kernels(shape, search):
+    """Threads, shared memory and every shared load inside its region: the
+    20 window elements a thread loads per row and its current rows."""
+    h, w = SHAPES[shape]
+    tl = me_variants_cuda.map_tiles(h, w, search)
+    mb_cols = w // 16
+    assert 1 <= tl.threads <= me_cuda.THREADS
+    assert tl.g_lo >= 0 and tl.g_lo + tl.n_dxg <= 8
+    assert 4 * tl.g_lo <= 16 - search and 16 + search < 4 * (tl.g_lo
+                                                             + tl.n_dxg)
+    assert me_cuda.TILE_DY * tl.n_dyt >= 2 * search + 1
+    assert (tl.tiles_per_row - 1) * tl.mb_tile < mb_cols \
+        <= tl.tiles_per_row * tl.mb_tile
+    assert me_variants_cuda.map_tile_smem_bytes(tl, search) \
+        <= me_cuda.SMEM_LIMIT
+    rows = me_cuda.TILE_DY * tl.n_dyt + 15
+    row = 16 * tl.mb_tile + 32
+    last_g = tl.g_lo + tl.n_dxg - 1
+    # window row 8 t + q, elements 16 m + 4 g .. + 19, all 16-byte aligned
+    assert me_cuda.TILE_DY * (tl.n_dyt - 1) + me_cuda.TILE_DY + 14 < rows
+    assert 16 * (tl.mb_tile - 1) + 4 * last_g + 19 < row
+    # the loop reads pixel x of the MB at byte column 16 m + 16 + dx + x
+    # (K5: field words of x and x + 2 for x = 0, 1, 4, 5, .., 13), all
+    # inside the staged row
+    assert 16 * (tl.mb_tile - 1) + 16 + search + 15 < row
+
+
+def test_map_tiles_at_the_headline_shape():
+    """CIF at search 15: the search's 8 MBs of 32 threads per block, 3
+    tiles per MB row of 22, 48,512 bytes of shared memory."""
+    tl = me_variants_cuda.map_tiles(288, 352, 15)
+    assert tl == me_cuda.search_tiles(288, 352, 15)
+    assert me_variants_cuda.map_tile_smem_bytes(tl, 15) == 48_512
+
+
+M00FF = 0x00FF00FF
+BIAS = 0x01000100
+
+
+def viaddmax_u16x2(a, b, c):
+    """Hopper's VIADDMNMX.U16x2 max form: per 16-bit field, max of the
+    field sum a + b mod 2^16 and c (uint32 arrays)."""
+    lo = np.maximum((a + b) & 0xFFFF, c & 0xFFFF)
+    hi = np.maximum(((a >> 16) + (b >> 16)) & 0xFFFF, c >> 16)
+    return (lo | (hi << 16)).astype(np.uint32)
+
+
+def swar_term(cur_fields, ref_fields):
+    """K5's per-word term, as the kernel computes it in uint32: cb and kc
+    staged from the current fields, d1 = cb - ref, then one add-max."""
+    cb = (cur_fields + np.uint32(BIAS)).astype(np.uint32)
+    kc = (np.uint32(BIAS) - cur_fields).astype(np.uint32)
+    d1 = (cb - ref_fields).astype(np.uint32)
+    return viaddmax_u16x2(kc, ref_fields, d1)
+
+
+def test_swar_field_term_exact_for_every_byte_pair():
+    """All 65,536 (u, v) byte pairs in the low field and, in another order,
+    in the high field: each field of the term is 256 + |u - v|, and d1's
+    32-bit subtract borrows nothing across the fields."""
+    u, v = (a.ravel().astype(np.uint32) for a in
+            np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    u2, v2 = u[::-1], np.roll(v, 12345)
+    cur = u | (u2 << 16)
+    ref = v | (v2 << 16)
+    term = swar_term(cur, ref)
+    want_lo = 256 + np.abs(u.astype(np.int64) - v)
+    want_hi = 256 + np.abs(u2.astype(np.int64) - v2)
+    np.testing.assert_array_equal(term & 0xFFFF, want_lo)
+    np.testing.assert_array_equal(term >> 16, want_hi)
+    d1 = (cur + np.uint32(BIAS) - ref).astype(np.uint32)
+    np.testing.assert_array_equal(d1 & 0xFFFF, 256 + u.astype(np.int64) - v)
+    np.testing.assert_array_equal(d1 >> 16, 256 + u2.astype(np.int64) - v2)
+
+
+@pytest.mark.parametrize("cur_byte,ref_byte", [(255, 0), (0, 255), (7, 7)])
+def test_swar_accumulation_stays_below_a_field(cur_byte, ref_byte):
+    """A whole MB of one accumulator: 128 packed terms, summed in uint32 as
+    the kernel does.  Each field stays below 2^16 (65,408 at worst), and
+    the two fields less 2 x 128 x 256 are the SAD."""
+    word = np.uint32(cur_byte | cur_byte << 16)
+    rword = np.uint32(ref_byte | ref_byte << 16)
+    acc = np.uint32(0)
+    for _ in range(128):
+        acc = np.uint32((int(acc) + int(swar_term(word, rword))) & 0xFFFFFFFF)
+        assert int(acc) & 0xFFFF < 1 << 16 and int(acc) >> 16 < 1 << 16
+    lo, hi = int(acc) & 0xFFFF, int(acc) >> 16
+    assert lo == hi == 128 * (256 + abs(cur_byte - ref_byte))
+    assert lo + hi - 2 * 128 * 256 == 256 * abs(cur_byte - ref_byte)
+    if cur_byte != ref_byte:
+        assert lo == 65_408
+
+
+def test_swar_field_words_pair_each_pixel_with_its_reference_byte():
+    """K5's staging and loop indexing: window element b is the field word of
+    bytes b and b + 2 (a funnel shift of two staged words), current word k
+    holds pixels x_k and x_k + 2 for x_k = 0, 1, 4, 5, .., 13, and the loop
+    pairs word k with window element j + x_k, so under dx offset j every
+    pixel x of an MB row meets window byte j + x exactly once."""
+    raw = np.random.default_rng(6).integers(0, 256, 64).astype(np.uint8)
+    words = raw.view("<u4").astype(np.uint64)
+    pairs = words | np.append(words[1:], np.uint64(0)) << np.uint64(32)
+    win = np.stack([(pairs >> np.uint64(8 * k)) & np.uint64(M00FF)
+                    for k in range(4)], axis=1).ravel().astype(np.int64)
+    cur = raw[:16].view("<u4").astype(np.int64)
+    fields = np.stack([cur & M00FF, (cur >> 8) & M00FF], axis=1).ravel()
+    xk = [4 * (k >> 1) + (k & 1) for k in range(8)]
+    for j in range(4):
+        met = []
+        for k, x in enumerate(xk):
+            assert (fields[k] & 0xFFFF, fields[k] >> 16) == (raw[x],
+                                                            raw[x + 2])
+            v = win[j + x]
+            assert (v & 0xFFFF, v >> 16) == (raw[j + x], raw[j + x + 2])
+            met += [x, x + 2]
+        assert sorted(met) == list(range(16))
