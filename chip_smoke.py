@@ -14,16 +14,18 @@ run with a non-zero exit and no result line:
                  g++-builds the bit-I/O engine from
                  p64tpu_torch/csrc/bitio.cpp; prints each kernel's ptxas
                  registers, shared memory and spills, and from its SASS
-                 (cuobjdump -sass) the count of VABSDIFF4, IDP.4A, FADD,
-                 16x2 min/max, LDS and STG instructions; fails if the
-                 SWAR kernel holds byte SIMD or the f32 kernel an integer
-                 SAD instruction
+                 (cuobjdump -sass) the count of VABSDIFF4, IDP.4A, S8 IMMA,
+                 FADD, 16x2 min/max, LDS and STG instructions; fails if the
+                 SWAR kernel holds byte SIMD, the f32 kernel an integer
+                 SAD instruction, or the int8 kernel no signed int8 pool
+                 (IDP.4A or IMMA on S8) or an accumulating VABSDIFF4
   3. parity   -- CIF, search 15, 4 streams, three kinds of content: the
                  SAD-search kernel's map equals the plain torch map and an
                  int64 numpy oracle; its fused (mv, best_sad, sad0) equals
                  the plain full search
   4. pins     -- all thirteen pinned streams (fixed quantizer, rate
-                 control, MQUANT), encoded on the card, match their sha256
+                 control, MQUANT), encoded on the card through
+                 tools.pinned.current_hashes, match their sha256 and length
                  in tests/pinned_goldens.json
   5. gate     -- the hardware parity gate (p64tpu_torch.tools.parity) in
                  this process: every SAD formulation and kernel against an
@@ -71,6 +73,11 @@ run with a non-zero exit and no result line:
                  then one NCCL process (world size 1) on a small batch
  15. profile  -- tools.profile on the card with a trace: exit 0, a Chrome
                  trace and the table of operators by self CUDA time
+ 16. resync   -- damaged copies of the thirteen pinned streams (the
+                 reference fuzzer's four corruption modes, seeded) decoded
+                 with resync: decode_stream on the card and on the CPU, and
+                 parse_to_tensors + decode_seq on the card, give the same
+                 refusal or equal planes
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -108,6 +115,8 @@ MIX_STREAMS, MIX_FRAMES = 16, 32
 ORACLE_STREAMS = 4
 #: the one kernel source, p64tpu_torch/csrc/<name>.cu
 KERNEL_LIB = "sad_search"
+#: damaged copies of each pinned stream in the resync phase, and their seed
+RESYNC_PER_PIN, RESYNC_SEED = 8, 16
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -138,16 +147,24 @@ PTXAS_KERNELS = (("sad_search_kernelILb0", "sad_search"),
 #: opcode with its modifiers)
 SASS_CLASSES = {
     "VABSDIFF4": lambda op: op.startswith("VABSDIFF4"),
+    "VABSDIFF4.ACC": lambda op: op.startswith("VABSDIFF4") and ".ACC" in op,
     "IDP4A": lambda op: op.startswith("IDP.4A"),
+    "IDP4A.S8": lambda op: op.startswith("IDP.4A") and ".S8" in op,
+    "IMMA.S8": lambda op: op.startswith("IMMA") and ".S8" in op,
     "FADD": lambda op: op.split(".")[0] == "FADD",
     "MNMX16x2": lambda op: "MNMX" in op and "16x2" in op,
     "LDS": lambda op: op.split(".")[0] == "LDS",
     "STG": lambda op: op.split(".")[0] == "STG",
 }
 #: SASS classes a kernel's formulation forbids: K5 is SWAR without byte
-#: SIMD, K1 float abs-diff without an integer SAD instruction
+#: SIMD, K1 float abs-diff without an integer SAD instruction, K4 pools
+#: apart from its abs-diffs (no VABSDIFF4 that accumulates)
 SASS_FORBIDDEN = {"sad_map_swar": ("VABSDIFF4", "IDP4A"),
-                  "sad_map_f32": ("VABSDIFF4", "IDP4A")}
+                  "sad_map_f32": ("VABSDIFF4", "IDP4A"),
+                  "sad_map_i8": ("VABSDIFF4.ACC",)}
+#: SASS classes of which a kernel's formulation needs at least one: K4's
+#: signed int8 pool, on the tensor cores or by dot product
+SASS_REQUIRED = {"sad_map_i8": ("IMMA.S8", "IDP4A.S8")}
 
 
 def log(msg: str) -> None:
@@ -258,7 +275,8 @@ def sass_opcodes(library: str) -> dict:
 def sass_summary() -> dict:
     """Print, per kernel of the library, its SASS instruction count and the
     count of each SASS_CLASSES class; fail if a kernel holds a class its
-    formulation forbids.  Returns kernel name -> counts."""
+    formulation forbids or none of those it needs.  Returns kernel name ->
+    counts."""
     from p64tpu_torch.kernels import _build
 
     ops = sass_opcodes(os.path.join(_build.BUILD_DIR, KERNEL_LIB + ".so"))
@@ -276,6 +294,10 @@ def sass_summary() -> dict:
         if found:
             raise AssertionError(f"{name}'s SASS holds {found}, which its "
                                  "formulation forbids")
+    for name, needed in SASS_REQUIRED.items():
+        if not any(counts[name][k] for k in needed):
+            raise AssertionError(f"{name}'s SASS holds none of {needed}, "
+                                 "which its formulation needs")
     return counts
 
 
@@ -349,19 +371,19 @@ def check_fused(kernel, plain, what: str) -> int:
 
 
 def check_pins(dev) -> dict:
-    """Encode every pinned configuration on `dev` and hold it to its
-    sha256; returns name -> stream bytes."""
+    """Encode every pinned configuration on `dev` through
+    tools.pinned.current_hashes and hold it to the pin file's sha256 and
+    length; returns name -> stream bytes."""
     from p64tpu_torch.tools import pinned
 
-    want = pinned.pinned_hashes()
+    with open(pinned.PIN_FILE) as f:
+        want = json.load(f)
     streams = {}
-    for name, data in pinned.pinned_streams(dev):
-        digest = hashlib.sha256(data).hexdigest()
-        if digest != want[name]:
-            raise AssertionError(f"pin {name}: sha256 {digest} != pinned "
-                                 f"{want[name]}")
-        log(f"[pins] {name}: {len(data)} bytes, sha256 matches")
-        streams[name] = data
+    for name, pin in pinned.current_hashes(dev, streams).items():
+        if pin != want.get(name):
+            raise AssertionError(f"pin {name}: {pin} != pinned "
+                                 f"{want.get(name)}")
+        log(f"[pins] {name}: {pin['bytes']} bytes, sha256 matches")
     return streams
 
 
@@ -653,6 +675,102 @@ def pins_decoded(pins: dict, dev) -> None:
                 raise AssertionError(f"pin {name}: card decode != CPU decode")
         log(f"[pinsdec] {name}: {on_card[0].shape[0]} frames, card decode "
             "== CPU decode")
+
+
+def damaged_streams(streams: dict, per_stream: int, seed: int):
+    """`per_stream` damaged copies of each of `streams` (name -> bytes), by
+    the reference fuzzer's four corruption modes (tools/fuzz_differential.py)
+    drawn from one seeded generator: 0 flips 1-6 bits, 1 truncates and
+    flips a bit, 2 splices another stream's tail after a prefix, 3
+    overwrites a span of up to 63 random bytes.  Yields (name, mode,
+    bytes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = [streams[k] for k in sorted(streams)]
+    for name in sorted(streams):
+        for _ in range(per_stream):
+            d = bytearray(streams[name])
+            mode = int(rng.integers(4))
+            if mode == 0:
+                for _ in range(1 + int(rng.integers(6))):
+                    p = int(rng.integers(len(d)))
+                    d[p] ^= 1 << int(rng.integers(8))
+            elif mode == 1:
+                d = d[:int(rng.integers(1, len(d)))]
+                if len(d) > 2:
+                    p = int(rng.integers(len(d)))
+                    d[p] ^= 1 << int(rng.integers(8))
+            elif mode == 2:
+                other = pool[int(rng.integers(len(pool)))]
+                d = (d[:int(rng.integers(len(d)))]
+                     + other[int(rng.integers(len(other))):])
+            else:
+                p = int(rng.integers(len(d)))
+                n = int(rng.integers(1, 64))
+                d[p:p + n] = bytes(rng.integers(0, 256, min(n, len(d) - p),
+                                                dtype=np.uint8))
+            yield name, mode, bytes(d)
+
+
+def _planes_or_refusal(fn):
+    """fn()'s (y, cb, cr) as numpy arrays, or the ValueError the stream
+    drew (StreamError is one); any other error, a CUDA fault among them,
+    propagates."""
+    import numpy as np
+
+    try:
+        return tuple(np.asarray(p) for p in fn()[:3])
+    except ValueError as e:
+        return e
+
+
+def resync_phase(streams: dict, dev, per_stream: int, seed: int) -> dict:
+    """Phase 16: damaged copies of `streams` decoded with resync through
+    decode_stream on `dev` and on the CPU, and through parse_to_tensors +
+    decode_seq on `dev`.  All three must refuse (a ValueError) or give
+    equal planes; a divergence raises with its first diverging plane and
+    index.  Returns the counts of decoded and refused streams."""
+    import numpy as np
+
+    from p64tpu_torch.core import decoder
+
+    def on_tensors(d):
+        fmt, _, seq = decoder.parse_to_tensors(d, resync=True)
+        return decoder.decode_seq(fmt, seq, device=dev)
+
+    counts = {"decoded": 0, "refused": 0}
+    for name, mode, d in damaged_streams(streams, per_stream, seed):
+        got = {
+            "decode_stream card": _planes_or_refusal(
+                lambda: decoder.decode_stream(d, resync=True, device=dev)),
+            "decode_stream cpu": _planes_or_refusal(
+                lambda: decoder.decode_stream(d, resync=True, device="cpu")),
+            "parse_to_tensors + decode_seq card": _planes_or_refusal(
+                lambda: on_tensors(d)),
+        }
+        (ref_name, ref), *rest = got.items()
+        what = f"{name}, mode {mode}, {len(d)} bytes"
+        for path, planes in rest:
+            if isinstance(ref, ValueError) or isinstance(planes, ValueError):
+                if not (isinstance(ref, ValueError)
+                        and isinstance(planes, ValueError)):
+                    raise AssertionError(f"resync {what}: {ref_name} gave "
+                                         f"{ref!r:.200}, {path} {planes!r:.200}")
+                continue
+            for plane, a, b in zip(("y", "cb", "cr"), ref, planes):
+                if a.shape != b.shape:
+                    raise AssertionError(f"resync {what}: {plane} shape "
+                                         f"{a.shape} ({ref_name}) != "
+                                         f"{b.shape} ({path})")
+                bad = np.argwhere(a != b)
+                if bad.size:
+                    at = tuple(int(i) for i in bad[0])
+                    raise AssertionError(
+                        f"resync {what}: {plane} first differs at {at}: "
+                        f"{ref_name} {a[at]}, {path} {b[at]}")
+        counts["refused" if isinstance(ref, ValueError) else "decoded"] += 1
+    return counts
 
 
 def headline_cfg(emit_recon: bool = True):
@@ -1151,6 +1269,13 @@ def main() -> int:
 
     # 15. the profiler
     by_path["profile"] = profile_phase(card)
+
+    # 16. damaged pins decoded with resync on the card and on the CPU
+    counts = resync_phase(pins, dev, RESYNC_PER_PIN, RESYNC_SEED)
+    log(f"[resync] {RESYNC_PER_PIN} damaged copies of each of {len(pins)} "
+        f"pins (seed {RESYNC_SEED}): {counts['decoded']} decoded, "
+        f"{counts['refused']} refused, the same on the card, the CPU and "
+        "parse_to_tensors + decode_seq")
 
     log(card)
     kernels = [{

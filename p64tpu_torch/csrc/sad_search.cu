@@ -24,12 +24,15 @@
 // 26 MB of input per frame; device memory is not the limit of the search.
 // The cheapest instruction for the work is VABSDIFF4 with accumulate
 // (PTX vabsdiff4.add: 4 byte abs-diffs summed into a 32-bit register),
-// which issues on the SM's 64 integer lanes per clock, as IADD3 and IDP4A
-// do (measured on an H100); that puts the floor of the work at 0.169 ms
-// per frame at 1,980 MHz.  No tensor core helps: |a - b| has no product
-// form, and VABSDIFF4 already pools 4 bytes into its accumulator, so an
-// mma/wgmma pool could only add work.  A dense map adds 195 MB of stores
-// per frame of 128 CIF streams.
+// which issues on the SM's 64 integer lanes per clock, as IADD3, LOP3 and
+// VIADDMNMX.U16x2 do (IDP4A issues beside them, on another pipe; probes on
+// an H100); that puts the floor of the work at 0.169 ms per frame at 1,980
+// MHz.  No tensor core helps K2: |a - b| has no product form, and
+// VABSDIFF4 already pools 4 bytes into its accumulator, so an mma/wgmma
+// pool could only add work.  K4's formulation has a pool of its own, a
+// signed int8 dot product; for it an int8 tensor-core pool was built and
+// measured, and lost (see K4).  A dense map adds 195 MB of stores per
+// frame of 128 CIF streams.
 //
 // K2, the search (one thread per 4 dx x 8 dy of one MB, register tiled):
 //   * A thread owns byte columns 4g..4g+3 of the window (4 dx sharing one
@@ -63,8 +66,9 @@
 //     in shared memory, over the window copies, and writes them as runs of
 //     consecutive MBs.
 //   * The wrapper (kernels/me_cuda.py::search_tiles) computes the tile
-//     geometry; tests/test_torch_me_tiles.py walks it on the CPU.  K1 and
-//     K5 share the tiles, the staging and the map store.
+//     geometry; tests/test_torch_me_tiles.py walks it on the CPU.  K1, K4
+//     and K5 share the tiles, the staging and the map store; K4 also the
+//     4 byte alignments and the thread tile.
 //   * Tried and measured (PERF.md): 4 dy per thread with the alignments
 //     formed by funnel shifts in the loop, and a persistent grid that
 //     double-buffers the next tile's window; both were slower.
@@ -108,22 +112,42 @@
 //       emits as IMAD.IADD on the FMA pipe), one Hopper VIADDMNMX.U16x2
 //       (max(kc + ref, cb - ref) = 256 + |u - v| per field) and half an
 //       IADD3 to accumulate: 2.5 instructions per 2 pixels where the TPU's
-//       form spent 12.  A model of its floor, not measured as a whole:
-//       those 2.5 at one warp instruction per SM sub-partition per clock
-//       take 0.421 ms per frame of 128 CIF streams, and the VIADDMNMX
-//       alone, at the 55 lanes per SM per clock a probe measured on an
-//       H100, 0.39 ms; whether the pipes' sharing costs more is open.
-//       It is the gate's check of integer SWAR against the hardware's byte
-//       SIMD.
-// K4, i8 (simple first version): one block per (stream, macroblock); the
-//   16x16 current block and the reference window (rows y0-15 .. y0+30,
-//   columns x0-16 .. x0+31) are staged once in shared memory, and each
-//   thread walks its share of the offsets, reading the reference at any
-//   byte column through a funnel-shift alignment of 32-bit words.
-//   __vabsdiffu4 gives 4 packed |a - b| bytes; XOR 0x80808080 turns each
-//   into the int8 ad - 128; __dp4a(word, 0x01010101, acc) pools 4 of them
-//   per instruction; + 128 * 256 per box undoes the bias.  The TPU fed the
-//   biased bytes to its int8 matrix unit.
+//       form spent 12.  The VIADDMNMX and the IADD3 share one pipe (a
+//       probe on an H100: a 2:1 mix of them runs at the 61 lanes per SM per
+//       clock either takes alone), and the whole mix, subtract included,
+//       ran at 34 VIADDMNMX lanes per SM per clock: 0.63-0.65 ms per frame
+//       of 128 CIF streams for the offsets inside the picture.  It is the
+//       gate's check of integer SWAR against the hardware's byte SIMD.
+// K4, i8 (<- _sad_kernel_i8): the TPU kernel's arithmetic.  Each byte
+//   abs-diff ad = |cur - ref| becomes the int8 ad - 128 (XOR 0x80 per byte,
+//   kI8Bias), a signed 8-bit dot product pools them into int32, and + 128
+//   per pixel (kI8Excess = 32,768 per MB) undoes the bias after the pool.
+//   Exact: an MB's 256 terms lie in -128..127, so their sum lies in
+//   -32,768..32,512, far inside int32, and + 32,768 gives the SAD in
+//   0..65,280.  The TPU pooled the biased bytes on its int8 matrix unit;
+//   here the pool is IDP4A.S8 (__dp4a with 0x01010101), 4 terms per
+//   instruction.  K2's tiles, staging, 4 byte alignments and thread tile
+//   (4 dx x 8 dy of one MB, kernels/me_variants_cuda.py::i8_tiles): per 4
+//   pixels one VABSDIFF4 without accumulate and one LOP3 on the integer
+//   lanes, and the IDP4A beside them on another pipe, so the loop spends
+//   2 integer-lane instructions per 4 pixels: 0.337 ms per frame of 128 CIF
+//   streams for the offsets inside the picture, 0.433 ms over the padded
+//   32 x 32 offsets and 24 MB slots of a CIF row that the tiles compute.
+//   The map is staged over the window, off-picture entries masked there,
+//   and written as runs of MBs.  Registers per thread: acc[8][4] (its 8 dy
+//   x 4 dx), the current block's 64 words, and per window row the 16
+//   words al[j][k] of the 4 alignments.
+//   Measured and dropped at design time (PERF.md): the pool on the int8
+//   tensor cores.  With B all ones, a row of A sums into every column of
+//   C whatever the order of its k, so mma.sync m16n8k32 s8 took one warp
+//   per (8 MBs, 2 dx, 8 dy): lane l held A rows l/4 (MB l/4 at the first
+//   dx) and l/4 + 8 (at the second), its k slots the biased words l%4 of
+//   current rows r - 1 and r, and C's column 0 of each row summed that
+//   (dy, dx, MB) over 8 k-steps.  That spends the same 2 integer-lane
+//   instructions per 4 pixels plus an IMMA per 128 words; equal to the
+//   plain map, it took 0.948 ms against this kernel's 0.595: an IMMA
+//   beside every 8 integer instructions slowed them by 27% in a probe, an
+//   IDP4A beside every 2 by 1%.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,8 +158,6 @@ namespace {
 
 constexpr int kMb = 16;
 constexpr int kMargin = 15;                  // H.261 MV range
-constexpr int kWinRows = kMb + 2 * kMargin;  // 46
-constexpr int kWinWords = 12;                // 48 bytes: x0-16 .. x0+31
 constexpr int kThreads = 256;
 constexpr int kInvalid = 1 << 30;
 constexpr int kStaticSmem = 48 * 1024;       // no opt-in attribute needed
@@ -149,12 +171,6 @@ constexpr int kRpMaxWidth = 352;             // CIF, the widest H.261 picture
 constexpr int kRpSide = 2 * kMargin + 1;     // dx computed per column word
 constexpr int kRpHaloWords = 4;              // 16 bytes each side
 constexpr int kRpMaxThreads = 128;           // >= kRpMaxWidth / 4, whole warps
-
-__device__ __forceinline__ bool window_inside(int y0, int x0, int dy, int dx,
-                                              int height, int width) {
-  return y0 + dy >= 0 && y0 + dy + kMb <= height && x0 + dx >= 0 &&
-         x0 + dx + kMb <= width;
-}
 
 // One 16-byte cp.async; with inside false it writes 16 zero bytes and reads
 // nothing (src is then any valid address).
@@ -180,33 +196,7 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
   return d;
 }
 
-// Stage the reference window and the current block as 32-bit words for the
-// one-MB-per-block kernels; pixels outside the picture read as 0 and are
-// used by no valid offset.
-__device__ __forceinline__ void stage_words(const uint32_t* cur_plane,
-                                            const uint32_t* ref_plane,
-                                            int height, int width, int y0,
-                                            int x0, uint32_t* win,
-                                            uint32_t* cur_words) {
-  const int words_per_row = width / 4;
-  for (int i = threadIdx.x; i < kWinRows * kWinWords; i += blockDim.x) {
-    const int r = i / kWinWords;
-    const int c = i % kWinWords;
-    const int py = y0 - kMargin + r;
-    const int px = x0 - 16 + 4 * c;
-    uint32_t v = 0;
-    if (py >= 0 && py < height && px >= 0 && px < width)
-      v = ref_plane[py * words_per_row + px / 4];
-    win[i] = v;
-  }
-  if (threadIdx.x < kMb * 4) {
-    const int r = threadIdx.x / 4;
-    const int c = threadIdx.x % 4;
-    cur_words[threadIdx.x] = cur_plane[(y0 + r) * words_per_row + x0 / 4 + c];
-  }
-}
-
-// ----------------------------------- MB tiles: K2's geometry, also K1, K5
+// ------------------------------- MB tiles: K2's geometry, also K1, K4, K5
 
 // A block serves up to mb_tile horizontally adjacent MBs of one MB row;
 // block (n_dxg, mb_tile, n_dyt), grid (tiles per MB row, MB rows, streams),
@@ -252,6 +242,20 @@ __device__ __forceinline__ void stage_tile(
   cp_async_wait_all();
 }
 
+// Copies 1..3 of a staged window (copy_words words each): copy j is the
+// window shifted by j bytes, so that a loop reads every byte alignment with
+// plain loads (a row's last word is never read).
+__device__ __forceinline__ void shift_copies(uint32_t* win, int copy_words,
+                                             int tid, int n_threads) {
+  for (int i = tid; i < copy_words; i += n_threads) {
+    const uint32_t a = win[i];
+    const uint32_t b = i + 1 < copy_words ? win[i + 1] : 0;
+    win[copy_words + i] = __funnelshift_r(a, b, 8);
+    win[2 * copy_words + i] = __funnelshift_r(a, b, 16);
+    win[3 * copy_words + i] = __funnelshift_r(a, b, 24);
+  }
+}
+
 // Write a tile's map, staged as map_s[o * mb_tile + m], into the (streams,
 // n_off, n_mb) map: each offset's row holds the tile's MBs side by side, so
 // consecutive threads store consecutive MBs.
@@ -270,18 +274,24 @@ __device__ __forceinline__ void store_map_tile(const int32_t* map_s,
 
 // ------------------------------------------------- K2: the fused search
 
-// Shared memory: the window in 4 copies, copy j shifted by j bytes (the map
-// of a tile aliases them once the search is done), the current rows, one
-// key per thread.
-__host__ __device__ __forceinline__ size_t search_smem_bytes(
-    int mb_tile, int n_dxg, int n_dyt, int search, bool with_map) {
+// Shared memory of a tile read in 4 byte alignments (K2, K4): the window in
+// 4 copies, copy j shifted by j bytes (the map of a tile aliases them once
+// the loop is done), and the current rows.
+__host__ __device__ __forceinline__ size_t aligned_tile_smem_bytes(
+    int mb_tile, int n_dyt, int search, bool with_map) {
   const int side = 2 * search + 1;
   const size_t win = 4 * (size_t)kAligns * search_win_rows(n_dyt) *
                      search_win_words(mb_tile);
   // whole 16-byte chunks, so that the current rows stay aligned
   const size_t map = with_map ? 16 * (((size_t)side * side * mb_tile + 3) / 4)
                               : 0;
-  return (win > map ? win : map) + 4 * (size_t)kMb * 4 * mb_tile +
+  return (win > map ? win : map) + 4 * (size_t)kMb * 4 * mb_tile;
+}
+
+// K2's shared memory: the aligned tile and one key per thread.
+__host__ __device__ __forceinline__ size_t search_smem_bytes(
+    int mb_tile, int n_dxg, int n_dyt, int search, bool with_map) {
+  return aligned_tile_smem_bytes(mb_tile, n_dyt, search, with_map) +
          8 * (size_t)n_dxg * mb_tile * n_dyt;
 }
 
@@ -326,15 +336,7 @@ sad_search_kernel(const uint8_t* __restrict__ cur,
   stage_tile(cur_plane, ref_plane, height, width, search, y0, xt, mb_tile,
              n_here, win_rows, win, cur_s, tid, n_threads);
   __syncthreads();
-  // copies 1..3: the window shifted by 1..3 bytes, so the search reads
-  // every byte alignment with plain loads (a row's last word is never read)
-  for (int i = tid; i < copy_words; i += n_threads) {
-    const uint32_t a = win[i];
-    const uint32_t b = i + 1 < copy_words ? win[i + 1] : 0;
-    win[copy_words + i] = __funnelshift_r(a, b, 8);
-    win[2 * copy_words + i] = __funnelshift_r(a, b, 16);
-    win[3 * copy_words + i] = __funnelshift_r(a, b, 24);
-  }
+  shift_copies(win, copy_words, tid, n_threads);
   __syncthreads();
 
   const int m = threadIdx.y;
@@ -790,59 +792,121 @@ sad_map_rp_kernel(const uint8_t* __restrict__ cur,
 
 // ----------------------------------------------------------------- K4: i8
 
-__device__ __forceinline__ int row_i8(const uint32_t* q, int shift,
-                                      const uint32_t* c, int acc) {
-  // ad - 128 as int8 per byte, pooled 4 at a time by a signed dot product
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t ad = __vabsdiffu4(__funnelshift_r(q[k], q[k + 1], shift),
-                                     c[k]);
-    acc = __dp4a((int)(ad ^ 0x80808080u), 0x01010101, acc);
-  }
-  return acc;
+// Per byte: ad ^ 0x80 is ad - 128 read as int8 (ad = |cur - ref| <= 255);
+// a 16x16 MB's 256 terms sum to SAD - kI8Excess.
+constexpr uint32_t kI8Bias = 0x80808080u;
+constexpr int kI8Excess = 128 * kMb * kMb;
+
+__device__ __forceinline__ uint32_t biased_absdiff4(uint32_t a, uint32_t b) {
+  return __vabsdiffu4(a, b) ^ kI8Bias;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K2's map mode with K4's arithmetic: thread (x, m, t) owns dx = 4 (g_lo +
+// x) + j - 16 for j < 4 and dy + search = 8 t + i for i < 8 of MB m; per
+// window row it loads its 4 words in each of the 4 byte alignments and,
+// for each of its dy whose 16 rows hold that row, pools 16 biased words
+// into each of its 4 dx.  The current block stays in 64 registers.
+__global__ void __launch_bounds__(kThreads, 2)
 sad_map_i8_kernel(const uint8_t* __restrict__ cur,
                   const uint8_t* __restrict__ ref, int height, int width,
-                  int search, int32_t* __restrict__ out) {
-  __shared__ uint32_t win[kWinRows * kWinWords];
-  __shared__ uint32_t cur_words[kMb * 4];
+                  int search, int g_lo, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_dxg = blockDim.x;
+  const int mb_tile = blockDim.y;
+  const int n_dyt = blockDim.z;
+  const int n_threads = n_dxg * mb_tile * n_dyt;
+  const int tid = threadIdx.x + n_dxg * (threadIdx.y + mb_tile * threadIdx.z);
+  const int win_words = search_win_words(mb_tile);
+  const int win_rows = search_win_rows(n_dyt);
+  const int copy_words = win_rows * win_words;
+  const int side = 2 * search + 1;
+  const int n_off = side * side;
+  const size_t win_part = (size_t)kAligns * copy_words;
+  const size_t map_part = ((size_t)n_off * mb_tile + 3) / 4 * 4;
+  uint32_t* win = smem;
+  uint32_t* cur_s = win + (win_part > map_part ? win_part : map_part);
+  int32_t* map_s = reinterpret_cast<int32_t*>(smem);
 
   const int mb_cols = width / kMb;
   const int n_mb = mb_cols * (height / kMb);
-  const int stream = blockIdx.y;
-  const int mb = blockIdx.x;
-  const int y0 = (mb / mb_cols) * kMb;
-  const int x0 = (mb % mb_cols) * kMb;
+  const int mb_row = blockIdx.y;
+  const int stream = blockIdx.z;
+  const int mc0 = blockIdx.x * mb_tile;
+  const int n_here = min(mb_tile, mb_cols - mc0);
+  const int y0 = mb_row * kMb;
+  const int xt = mc0 * kMb;
   const size_t plane = (size_t)height * width;
-  stage_words(reinterpret_cast<const uint32_t*>(cur + stream * plane),
-              reinterpret_cast<const uint32_t*>(ref + stream * plane), height,
-              width, y0, x0, win, cur_words);
+  stage_tile(cur + stream * plane, ref + stream * plane, height, width,
+             search, y0, xt, mb_tile, n_here, win_rows, win, cur_s, tid,
+             n_threads);
+  __syncthreads();
+  shift_copies(win, copy_words, tid, n_threads);
   __syncthreads();
 
+  const int m = threadIdx.y;
+  const int t = threadIdx.z;
+  const int g = g_lo + threadIdx.x;
   uint32_t c[kMb * 4];
+  const uint4* cur4 = reinterpret_cast<const uint4*>(cur_s);
 #pragma unroll
-  for (int i = 0; i < kMb * 4; ++i) c[i] = cur_words[i];
-
-  const int side = 2 * search + 1;
-  const int n_off = side * side;
-  for (int o = threadIdx.x; o < n_off; o += kThreads) {
-    const int dy = o / side - search;
-    const int dx = o % side - search;
-    int sad = kInvalid;
-    if (window_inside(y0, x0, dy, dx, height, width)) {
-      const int col = 16 + dx;  // byte column in the window
-      const int shift = (col & 3) * 8;
-      const uint32_t* p = win + (kMargin + dy) * kWinWords + (col >> 2);
-      int acc = 0;
-#pragma unroll
-      for (int r = 0; r < kMb; ++r)
-        acc = row_i8(p + r * kWinWords, shift, c + 4 * r, acc);
-      sad = acc + 128 * kMb * kMb;
-    }
-    out[((size_t)stream * n_off + o) * n_mb + mb] = sad;
+  for (int r = 0; r < kMb; ++r) {
+    const uint4 v = cur4[r * mb_tile + m];
+    c[4 * r + 0] = v.x;
+    c[4 * r + 1] = v.y;
+    c[4 * r + 2] = v.z;
+    c[4 * r + 3] = v.w;
   }
+  // acc[i][j]: dy + search = kTileDy * t + i, dx + 16 = 4 g + j
+  int acc[kTileDy][4];
+#pragma unroll
+  for (int i = 0; i < kTileDy; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  const uint32_t* p = win + kTileDy * t * win_words + 4 * m + g;
+#pragma unroll
+  for (int q = 0; q < kTileRows; ++q) {
+    uint32_t al[4][4];  // al[j][k]: bytes 4(g+k)+j .. of window row q
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        al[j][k] = p[j * copy_words + q * win_words + k];
+#pragma unroll
+    for (int i = 0; i < kTileDy; ++i) {
+      const int r = q - i;  // row of the current block under this dy
+      if (r < 0 || r >= kMb) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          acc[i][j] = __dp4a((int)biased_absdiff4(al[j][k], c[4 * r + k]),
+                             0x01010101, acc[i][j]);
+    }
+  }
+
+  const int x0 = xt + kMb * m;
+  const int di_lo = max(0, search - y0);
+  const int di_hi = min(side - 1, search + height - kMb - y0);
+  const int dx_lo = max(-search, -x0);
+  const int dx_hi = min(search, width - kMb - x0);
+  __syncthreads();  // the map aliases the window copies
+#pragma unroll
+  for (int i = 0; i < kTileDy; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int di = kTileDy * t + i;
+      const int dx = 4 * g + j - 16;
+      if (m < n_here && di < side && dx >= -search && dx <= search) {
+        const bool inside =
+            di >= di_lo && di <= di_hi && dx >= dx_lo && dx <= dx_hi;
+        map_s[(di * side + dx + search) * mb_tile + m] =
+            inside ? acc[i][j] + kI8Excess : kInvalid;
+      }
+    }
+  }
+  __syncthreads();
+  store_map_tile(map_s, out, n_off, n_mb, stream, mb_row * mb_cols + mc0,
+                 mb_tile, n_here, tid, n_threads);
 }
 
 int check_args(int streams, int height, int width, int search) {
@@ -851,17 +915,6 @@ int check_args(int streams, int height, int width, int search) {
       search > kMargin)
     return (int)cudaErrorInvalidValue;
   return 0;
-}
-
-using MapKernel = void (*)(const uint8_t*, const uint8_t*, int, int, int,
-                           int32_t*);
-
-int launch_map(MapKernel kernel, dim3 grid, const void* cur, const void* ref,
-               int height, int width, int search, void* out, void* stream) {
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref),
-      height, width, search, static_cast<int32_t*>(out));
-  return (int)cudaGetLastError();
 }
 
 // A tile geometry (kernels/me_cuda.py::tile_geometry) the tiled kernels
@@ -883,12 +936,13 @@ bool tiles_ok(int width, int search, int tiles_per_row, int mb_tile,
 using TileMapKernel = void (*)(const uint8_t*, const uint8_t*, int, int, int,
                                int, int32_t*);
 
-int launch_tile_map(TileMapKernel kernel, const void* cur, const void* ref,
-                    int streams, int height, int width, int search,
-                    int tiles_per_row, int mb_tile, int g_lo, int n_dxg,
-                    int n_dyt, void* out, void* stream) {
+// Launch a map kernel that takes block (n_dxg, mb_tile, n_dyt) and `smem`
+// bytes of shared memory: K1, K4, K5.
+int launch_tile_map(TileMapKernel kernel, size_t smem, const void* cur,
+                    const void* ref, int streams, int height, int width,
+                    int search, int tiles_per_row, int mb_tile, int g_lo,
+                    int n_dxg, int n_dyt, void* out, void* stream) {
   if (int rc = check_args(streams, height, width, search)) return rc;
-  const size_t smem = map_tile_smem_bytes(mb_tile, n_dyt, search);
   if (!tiles_ok(width, search, tiles_per_row, mb_tile, g_lo, n_dxg, n_dyt,
                 smem))
     return (int)cudaErrorInvalidValue;
@@ -902,8 +956,8 @@ int launch_tile_map(TileMapKernel kernel, const void* cur, const void* ref,
 }  // namespace
 
 // Plain C entry points for ctypes.  cur/ref: (streams, height, width) uint8,
-// contiguous on the current device (16-byte aligned for every kernel but
-// i8, since they stage with cp.async; 4-byte aligned for i8).  Each launches
+// contiguous on the current device, 16-byte aligned (every kernel stages
+// them with cp.async).  Each launches
 // on `stream`, does not synchronise, and returns the cudaGetLastError()
 // code of the launch (0 on success, cudaErrorInvalidValue for arguments or
 // a geometry it does not take).
@@ -942,9 +996,10 @@ extern "C" int p64_sad_map_f32(const void* cur, const void* ref, int streams,
                                int tiles_per_row, int mb_tile, int g_lo,
                                int n_dxg, int n_dyt, void* out,
                                void* stream) {
-  return launch_tile_map(sad_map_f32_kernel, cur, ref, streams, height, width,
-                         search, tiles_per_row, mb_tile, g_lo, n_dxg, n_dyt,
-                         out, stream);
+  return launch_tile_map(sad_map_f32_kernel,
+                         map_tile_smem_bytes(mb_tile, n_dyt, search), cur,
+                         ref, streams, height, width, search, tiles_per_row,
+                         mb_tile, g_lo, n_dxg, n_dyt, out, stream);
 }
 
 // rp's geometry comes from kernels/me_variants_cuda.py::rp_geometry.
@@ -969,13 +1024,16 @@ extern "C" int p64_sad_map_rp(const void* cur, const void* ref, int streams,
   return (int)cudaGetLastError();
 }
 
+// K4's geometry comes from kernels/me_variants_cuda.py::i8_tiles.
 extern "C" int p64_sad_map_i8(const void* cur, const void* ref, int streams,
-                              int height, int width, int search, void* out,
-                              void* stream) {
-  if (int rc = check_args(streams, height, width, search)) return rc;
-  return launch_map(sad_map_i8_kernel,
-                    dim3((height / kMb) * (width / kMb), streams), cur, ref,
-                    height, width, search, out, stream);
+                              int height, int width, int search,
+                              int tiles_per_row, int mb_tile, int g_lo,
+                              int n_dxg, int n_dyt, void* out, void* stream) {
+  return launch_tile_map(sad_map_i8_kernel,
+                         aligned_tile_smem_bytes(mb_tile, n_dyt, search, true),
+                         cur, ref, streams, height, width, search,
+                         tiles_per_row, mb_tile, g_lo, n_dxg, n_dyt, out,
+                         stream);
 }
 
 extern "C" int p64_sad_map_swar(const void* cur, const void* ref, int streams,
@@ -983,9 +1041,10 @@ extern "C" int p64_sad_map_swar(const void* cur, const void* ref, int streams,
                                 int tiles_per_row, int mb_tile, int g_lo,
                                 int n_dxg, int n_dyt, void* out,
                                 void* stream) {
-  return launch_tile_map(sad_map_swar_kernel, cur, ref, streams, height,
-                         width, search, tiles_per_row, mb_tile, g_lo, n_dxg,
-                         n_dyt, out, stream);
+  return launch_tile_map(sad_map_swar_kernel,
+                         map_tile_smem_bytes(mb_tile, n_dyt, search), cur,
+                         ref, streams, height, width, search, tiles_per_row,
+                         mb_tile, g_lo, n_dxg, n_dyt, out, stream);
 }
 
 // Message for a code returned by the entry points above.

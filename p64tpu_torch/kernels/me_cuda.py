@@ -7,8 +7,8 @@ for parity checks against the plain `me.sad_map`).  See the source for
 what bounds it and how it is laid out.
 
 `search_tiles` computes the kernel's launch geometry (MB tiles, the word
-columns and dy tiles a thread owns) through `tile_geometry`, which the K1
-and K5 map kernels share; tests/test_torch_me_tiles.py walks it as the
+columns and dy tiles a thread owns) through `tile_geometry`, which the K1,
+K4 and K5 map kernels share; tests/test_torch_me_tiles.py walks it as the
 kernels do.
 
 The same library holds the four SAD-map kernels that `me_variants_cuda`
@@ -44,8 +44,8 @@ MAX_TILE_MBS = 32
 
 @dataclasses.dataclass(frozen=True)
 class SearchTiles:
-    """Launch geometry of a kernel that serves MB tiles (the search, the K1
-    and K5 maps) for one (H, W, search).
+    """Launch geometry of a kernel that serves MB tiles (the search, the K1,
+    K4 and K5 maps) for one (H, W, search).
 
     A block serves `mb_tile` horizontally adjacent MBs of one MB row
     (`tiles_per_row` blocks per row, the last one ragged when mb_tile does
@@ -65,16 +65,21 @@ class SearchTiles:
     def threads(self) -> int:
         return self.n_dxg * self.mb_tile * self.n_dyt
 
-    def smem_bytes(self, search: int, with_map: bool) -> int:
-        """Dynamic shared memory of one block (the kernel's layout): the
-        window in ALIGNS byte alignments, which the tile's map reuses, the
-        current rows and one 8-byte key per thread."""
+    def aligned_smem_bytes(self, search: int, with_map: bool) -> int:
+        """Shared memory of a tile read in ALIGNS byte alignments (the
+        search, K4; csrc/sad_search.cu aligned_tile_smem_bytes): the window
+        in ALIGNS copies, which the tile's map reuses, and the current
+        rows."""
         win = 4 * ALIGNS * ((TILE_DY * self.n_dyt + MB_SIZE - 1)
                             * (4 * self.mb_tile + 8))
         side = 2 * search + 1
         tile_map = 16 * -(-side * side * self.mb_tile // 4) if with_map else 0
-        return (max(win, tile_map) + 4 * MB_SIZE * 4 * self.mb_tile
-                + 8 * self.threads)
+        return max(win, tile_map) + 4 * MB_SIZE * 4 * self.mb_tile
+
+    def smem_bytes(self, search: int, with_map: bool) -> int:
+        """Dynamic shared memory of one search block: the aligned tile and
+        one 8-byte key per thread."""
+        return self.aligned_smem_bytes(search, with_map) + 8 * self.threads
 
     def args(self) -> Tuple[int, ...]:
         return (self.tiles_per_row, self.mb_tile, self.g_lo, self.n_dxg,
@@ -84,7 +89,7 @@ class SearchTiles:
 def tile_geometry(height: int, width: int, search: int,
                   smem_bytes: Callable[[SearchTiles], int]) -> SearchTiles:
     """The tile geometry of a kernel that serves MB tiles (the search, and
-    the K1 and K5 maps) for (H, W) planes and a search range: word columns
+    the K1, K4 and K5 maps) for (H, W) planes and a search range: word columns
     covering byte columns 16 - search .. 16 + search, dy tiles covering
     the 2 search + 1 dy, and as many MBs per block as 256 threads,
     MAX_TILE_MBS and the kernel's shared memory, `smem_bytes(tiles)`,
@@ -137,10 +142,10 @@ def declare_map(kernel: str, n_geometry: int) -> None:
 
 
 def check_planes(kernel: str, cur_y: torch.Tensor, ref_y: torch.Tensor,
-                 search: int, align: int = 4) -> Tuple[int, int, int]:
+                 search: int) -> Tuple[int, int, int]:
     """Raise ValueError unless cur_y and ref_y are (S, H, W) uint8 CUDA
-    tensors the kernels take, `align`-byte aligned (16 for the kernels
-    that stage with cp.async); returns (S, H, W)."""
+    tensors the kernels take, 16-byte aligned (every kernel stages its
+    planes with cp.async); returns (S, H, W)."""
     for name, t in (("cur_y", cur_y), ("ref_y", ref_y)):
         if not t.is_cuda:
             raise ValueError(f"{kernel}_cuda: {name} is on {t.device}, "
@@ -151,9 +156,9 @@ def check_planes(kernel: str, cur_y: torch.Tensor, ref_y: torch.Tensor,
         if t.dim() != 3:
             raise ValueError(f"{kernel}_cuda: {name} has shape "
                              f"{tuple(t.shape)}, needs (S, H, W)")
-        if not t.is_contiguous() or t.data_ptr() % align:
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kernel}_cuda: {name} must be contiguous "
-                             f"and {align}-byte aligned")
+                             "and 16-byte aligned")
     if cur_y.shape != ref_y.shape or cur_y.device != ref_y.device:
         raise ValueError(f"{kernel}_cuda: cur_y and ref_y differ in shape "
                          "or device")
@@ -193,7 +198,7 @@ def sad_search_cuda(cur_y: torch.Tensor, ref_y: torch.Tensor,
     fourth element when with_map is set.
     """
     global LAUNCHES
-    s, h, w = check_planes("sad_search", cur_y, ref_y, search, align=16)
+    s, h, w = check_planes("sad_search", cur_y, ref_y, search)
     n_mb = (h // MB_SIZE) * (w // MB_SIZE)
     tiles = search_tiles(h, w, search)
     side = 2 * search + 1

@@ -8,16 +8,17 @@ the dense (S, (2s+1)^2, nMB) int32 map of `me.sad_map`:
   sad_map_i8_cuda    <- _sad_kernel_i8    (biased int8 bytes, dp4a pool)
   sad_map_swar_cuda  <- _sad_kernel_swar  (SWAR: 2 pixels per 32-bit word)
 
-K1 (f32) and K5 (swar) serve tiles of MBs in the search kernel's geometry
-(`map_tiles`, through `me_cuda.tile_geometry`) and keep their TPU kernel's
-arithmetic: K1 two FP32 adds per abs-diff, bounded by the FP32 lanes; K5
+K1 (f32), K4 (i8) and K5 (swar) serve tiles of MBs in the search kernel's
+geometry (`map_tiles`, `i8_tiles`, through `me_cuda.tile_geometry`) and
+keep their TPU kernel's arithmetic: K1 two FP32 adds per abs-diff, bounded
+by the FP32 lanes; K4 the abs-diff biased to int8 and a signed dp4a pool,
+2 integer-lane instructions per 4 pixels with the pool on another pipe; K5
 |u - v| on 16-bit fields, 2.5 instructions per 2 pixels with Hopper's
-16x2 add-max (its floor is a model, not measured).  K3 (rp) takes one
-block per dy group and MB row (`rp_geometry`); K4 (i8) one block per MB.
-They live in the SAD-search kernel's library, and share its loader,
-argument check and launch helper (`me_cuda`); the source says what bounds
-each and how it is laid out.  tests/test_torch_me_tiles.py walks every
-geometry as the kernels do.
+16x2 add-max.  K3 (rp) takes one block per dy group and MB row
+(`rp_geometry`).  They live in the SAD-search kernel's library, and share
+its loader, argument check and launch helper (`me_cuda`); the source says
+what bounds each and how it is laid out.  tests/test_torch_me_tiles.py
+walks every geometry as the kernels do.
 """
 
 from __future__ import annotations
@@ -64,21 +65,27 @@ def map_tiles(height: int, width: int, search: int) -> me_cuda.SearchTiles:
         height, width, search, lambda t: map_tile_smem_bytes(t, search))
 
 
+def i8_tiles(height: int, width: int, search: int) -> me_cuda.SearchTiles:
+    """Launch geometry of K4: the search's tiles, with as many MBs per block
+    as its shared memory (the search's map mode without its keys)
+    allows."""
+    return me_cuda.tile_geometry(
+        height, width, search, lambda t: t.aligned_smem_bytes(search, True))
+
+
 def _geometry(name: str, height: int, width: int, search: int):
     """The int geometry arguments of map kernel `name`'s entry point, after
     (cur, ref, S, H, W, search); their count is its C signature's."""
     if name == "sad_map_rp":
         return rp_geometry(width)
     if name == "sad_map_i8":
-        return ()
+        return i8_tiles(height, width, search).args()
     return map_tiles(height, width, search).args()
 
 
 def _map(name: str, cur_y: torch.Tensor, ref_y: torch.Tensor,
          search: int) -> torch.Tensor:
-    # all but i8 stage with cp.async
-    s, h, w = me_cuda.check_planes(
-        name, cur_y, ref_y, search, align=4 if name == "sad_map_i8" else 16)
+    s, h, w = me_cuda.check_planes(name, cur_y, ref_y, search)
     n_mb = (h // MB_SIZE) * (w // MB_SIZE)
     side = 2 * search + 1
     out = torch.empty((s, side * side, n_mb), dtype=torch.int32,

@@ -4,13 +4,24 @@ Mirrors `p64tpu/tools/pinned.py`: all thirteen pins, with the same frozen
 content (`p64tpu_torch.tools.golden_content`) and settings, held to the same
 sha256 in `tests/pinned_goldens.json`.  Six use a fixed quantizer, seven
 rate control (two of those with mid-GOB MQUANT segments).
+
+    python -m p64tpu_torch.tools.pinned [--device cuda|cpu]
+
+encodes every pin on the device (default cuda) and checks it against the
+pin file: `DRIFT` for a pin whose stream changed, `UNPINNED` for one the
+file lacks, then `PINS OK` (exit 0) or `PINS CHANGED` (exit 1).  The
+reference's `--write` is not ported: the pin file belongs to the JAX
+package, and the port only checks against it.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
-from typing import Dict, Iterator, Tuple
+import sys
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -81,3 +92,46 @@ def pinned_hashes() -> Dict[str, str]:
     with open(PIN_FILE) as f:
         pins = json.load(f)
     return {name: pins[name]["sha256"] for name in ALL_PINS}
+
+
+def current_hashes(device: torch.device | str,
+                   streams: Optional[Dict[str, bytes]] = None
+                   ) -> Dict[str, Dict[str, object]]:
+    """name -> {"sha256", "bytes"} of every pin encoded on `device`, in the
+    pin file's form; `streams`, if given, also receives name -> bytes."""
+    out = {}
+    for name, data in pinned_streams(device):
+        out[name] = dict(sha256=hashlib.sha256(data).hexdigest(),
+                         bytes=len(data))
+        if streams is not None:
+            streams[name] = data
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="p64tpu_torch.tools.pinned",
+                                 description="check the pinned streams")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to encode on (default cuda)")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("pinned: no CUDA device is available; pass --device cpu to "
+              "encode on the CPU", file=sys.stderr)
+        return 2
+    got = current_hashes(device)
+    with open(PIN_FILE) as f:
+        want = json.load(f)
+    drift = [k for k in got if k in want and got[k] != want[k]]
+    unpinned = [k for k in got if k not in want]
+    for k in drift:
+        print(f"DRIFT {k}: pinned {want[k]} != current {got[k]}")
+    for k in unpinned:
+        print(f"UNPINNED {k}: {got[k]}")
+    ok = not (drift or unpinned)
+    print("PINS OK" if ok else "PINS CHANGED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -137,25 +137,38 @@ def test_map_kernels_refuse_what_they_do_not_take(cuda):
                                            ref.transpose(1, 2), 4)
     with pytest.raises(ValueError, match="search"):
         me_variants_cuda.sad_map_f32_cuda(cur, ref, 16)
+    # every map kernel stages with cp.async: 16-byte aligned planes only
+    flat = torch.zeros(48 * 64 + 4, dtype=torch.uint8, device=cuda)
+    off = flat[4:].view(1, 48, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        me_variants_cuda.sad_map_i8_cuda(off, off, 4)
     wide = torch.zeros((1, 16, 368), dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="sad_map_rp kernel launch failed"):
         me_variants_cuda.sad_map_rp_cuda(wide, wide, 4)
 
 
+#: the wrapper's geometry of each tiled map kernel
+TILES = {"sad_map_f32": me_variants_cuda.map_tiles,
+         "sad_map_swar": me_variants_cuda.map_tiles,
+         "sad_map_i8": me_variants_cuda.i8_tiles}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["sad_map_f32", "sad_map_swar"])
+@pytest.mark.parametrize("name", ["sad_map_f32", "sad_map_swar",
+                                  "sad_map_i8"])
 def test_tiled_map_kernels_refuse_a_geometry_they_do_not_take(cuda, name):
-    """K1 and K5 take their geometry from the wrapper; one that leaves a
-    tile empty, misses dy or exceeds shared memory fails the launch."""
+    """K1, K4 and K5 take their geometry from the wrapper; one that leaves
+    a tile empty, misses dy or exceeds the block's threads or shared
+    memory fails the launch."""
     cur, ref = _planes(4, (1, 48, 64), cuda)
     out = torch.empty((1, 81, 12), dtype=torch.int32, device=cuda)
-    good = me_variants_cuda.map_tiles(48, 64, 4)
+    good = TILES[name](48, 64, 4)
     me_cuda.declare_map(name, len(good.args()))
     me_cuda.launch(name, cuda, cur.data_ptr(), ref.data_ptr(), 1, 48, 64, 4,
                    *good.args(), out.data_ptr())
     torch.cuda.synchronize()
     assert torch.equal(out, me.sad_map(cur, ref, 4))
-    big = me_variants_cuda.map_tiles(288, 352, 15)
+    big = TILES[name](288, 352, 15)
     for bad in (dataclasses.replace(good, tiles_per_row=2),
                 dataclasses.replace(good, n_dyt=1),
                 dataclasses.replace(good, g_lo=good.g_lo + 1),

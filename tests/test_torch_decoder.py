@@ -145,6 +145,31 @@ def test_decode_bench_mix_slice_equals_jax():
                        f"stream {i} vs encoder recon")
 
 
+def test_resync_phase_on_cpu(fixed_q, rate_controlled):
+    """chip_smoke's phase 16 on the CPU alone, at 4 damaged copies of two
+    QCIF streams: decode_stream and parse_to_tensors + decode_seq refuse
+    the same copies and give equal planes for the rest, which equal the
+    JAX package's resync decode."""
+    streams = {"fixed_q": fixed_q[0], "rate_controlled": rate_controlled[0]}
+    per, seed = 4, chip_smoke.RESYNC_SEED
+    counts = chip_smoke.resync_phase(streams, "cpu", per, seed)
+    assert counts["decoded"] + counts["refused"] == per * len(streams)
+    assert counts["decoded"] > 0
+    modes = set()
+    for name, mode, d in chip_smoke.damaged_streams(streams, per, seed):
+        modes.add(mode)
+        port = chip_smoke._planes_or_refusal(
+            lambda: tdec.decode_stream(d, resync=True, device="cpu"))
+        want = chip_smoke._planes_or_refusal(
+            lambda: _jax_decode(d, resync=True))
+        what = f"{name}, mode {mode}"
+        assert isinstance(port, ValueError) == isinstance(want, ValueError), \
+            (what, port, want)
+        if not isinstance(port, ValueError):
+            _assert_planes(port, want, what)
+    assert len(modes) > 1
+
+
 def test_resume_from_jax_planes(fixed_q):
     """decode_frames(init=<JAX planes as numpy>) over the second half of a
     stream equals the JAX decode of the whole stream there."""

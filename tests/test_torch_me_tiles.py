@@ -1,10 +1,12 @@
 """The launch geometry of the SAD-search kernel (K2), the row-pool map
-kernel (K3) and the tiled f32 and SWAR map kernels (K1, K5), walked on the
-CPU as the kernels walk it: every (offset, MB) of the (2s+1)^2 x nMB map
-gets exactly one key or map entry, each key's offset index is
-`me.offset_table(s)`'s row of its (dy, dx), and the geometry fits the
-kernels' limits.  K5's 16-bit field arithmetic is checked exhaustively,
-and its field-word staging against the pixels the loop pairs."""
+kernel (K3) and the tiled f32, int8 and SWAR map kernels (K1, K4, K5),
+walked on the CPU as the kernels walk it: every (offset, MB) of the
+(2s+1)^2 x nMB map gets exactly one key or map entry, each key's offset
+index is `me.offset_table(s)`'s row of its (dy, dx), and the geometry fits
+the kernels' limits.  K5's 16-bit field arithmetic is checked
+exhaustively, and its field-word staging against the pixels the loop
+pairs; K4's int8 bias for every byte pair, its worst MB sums, and its
+pool's walk over the window copies."""
 
 import numpy as np
 import pytest
@@ -148,12 +150,13 @@ def test_rp_geometry_covers_every_offset_and_mb_once(shape, search):
 
 # ----------------------------------------------- K1 and K5: tiled maps
 
-def map_tile_entries(height, width, search):
-    """Every map entry K1 and K5 write, as they write it: each thread puts
-    its in-search (offset, MB) into the tile's staged map, (block, thread,
-    o, MB); then the block stores the tile as runs of consecutive MBs,
-    (block, "store", o, MB)."""
-    tl = me_variants_cuda.map_tiles(height, width, search)
+def map_tile_entries(height, width, search,
+                     tiles=me_variants_cuda.map_tiles):
+    """Every map entry K1 and K5 (K4 with tiles=i8_tiles) write, as they
+    write it: each thread puts its in-search (offset, MB) into the tile's
+    staged map, (block, thread, o, MB); then the block stores the tile as
+    runs of consecutive MBs, (block, "store", o, MB)."""
+    tl = tiles(height, width, search)
     side, mb_cols = 2 * search + 1, width // 16
     n_off = side * side
     for block in range(tl.tiles_per_row * (height // 16)):
@@ -310,3 +313,125 @@ def test_swar_field_words_pair_each_pixel_with_its_reference_byte():
             assert (v & 0xFFFF, v >> 16) == (raw[j + x], raw[j + x + 2])
             met += [x, x + 2]
         assert sorted(met) == list(range(16))
+
+
+# -------------------------------- K4: the biased int8 pool in K2's tiles
+
+I8_BIAS, I8_EXCESS = 0x80, 128 * 256
+
+
+def biased_absdiff(a, b):
+    """K4's per-byte term: VABSDIFF4 then XOR 0x80, read as int8."""
+    ad = np.abs(a.astype(np.int16) - b.astype(np.int16)).astype(np.uint8)
+    return (ad ^ np.uint8(I8_BIAS)).view(np.int8)
+
+
+def test_i8_bias_exact_for_every_byte_pair():
+    """All 65,536 (u, v) byte pairs: |u - v| ^ 0x80 read as int8 is
+    |u - v| - 128."""
+    u, v = (a.ravel().astype(np.uint8) for a in
+            np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    want = np.abs(u.astype(np.int64) - v) - 128
+    np.testing.assert_array_equal(biased_absdiff(u, v).astype(np.int64),
+                                  want)
+
+
+@pytest.mark.parametrize("ad", [0, 255, 1, 254])
+def test_i8_mb_sum_undoes_the_bias(ad):
+    """One MB of equal abs-diffs pooled as the kernel pools it, 64 signed
+    dp4a steps of 4 biased bytes each into an int32 accumulator: the
+    worst cases are -32,768 (all 0) and 32,512 (all 255), and + 32,768
+    gives back the SAD."""
+    cur = np.full(256, ad, np.uint8)
+    ref = np.zeros(256, np.uint8)
+    words = biased_absdiff(cur, ref).reshape(64, 4)
+    acc = np.int32(0)
+    for w in words:  # __dp4a(word, 0x01010101, acc)
+        acc = np.int32(acc + int(w.astype(np.int32).sum()))
+    assert -32_768 <= int(acc) <= 32_512
+    if ad in (0, 255):
+        assert int(acc) == {0: -32_768, 255: 32_512}[ad]
+    assert int(acc) + I8_EXCESS == 256 * ad
+
+
+@pytest.mark.parametrize("search", SEARCHES)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_i8_tiles_cover_every_offset_and_mb_once(shape, search):
+    h, w = SHAPES[shape]
+    side, n_mb = 2 * search + 1, (h // 16) * (w // 16)
+    entries = list(map_tile_entries(h, w, search, me_variants_cuda.i8_tiles))
+    written = [e for e in entries if e[1] != "store"]
+    stored = [e for e in entries if e[1] == "store"]
+    assert (_coverage(written, side, n_mb) == 1).all()
+    assert (_coverage(stored, side, n_mb) == 1).all()
+
+
+def i8_pool_walk(tl, m, t, g):
+    """K4's loop for thread (dx group g - g_lo, MB m, dy tile t), as the
+    kernel runs it: per window row q, the 4 words of each byte alignment
+    j; per dy i with current row r = q - i inside the MB, 4 dp4a steps
+    into acc[i][j].  Yields (i, j, r, k, shared word index)."""
+    win_words = 4 * tl.mb_tile + 8
+    copy_words = (me_cuda.TILE_DY * tl.n_dyt + 15) * win_words
+    base = me_cuda.TILE_DY * t * win_words + 4 * m + g
+    for q in range(me_cuda.TILE_DY + 15):
+        for i in range(me_cuda.TILE_DY):
+            r = q - i
+            if not 0 <= r < 16:
+                continue
+            for j in range(4):
+                for k in range(4):
+                    yield i, j, r, k, base + j * copy_words + q * win_words + k
+
+
+@pytest.mark.parametrize("search", SEARCHES)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_i8_pool_takes_each_pixel_word_once_inside_its_region(shape,
+                                                              search):
+    """Each (dy, dx) accumulator of a thread pools each of its MB's 64
+    pixel words (current row r, word k) exactly once, against window row
+    8 t + i + r, byte column 4 (4 m + g + k) + j = 16 m + 16 + dx + 4 k:
+    the reference pixels of MB m under (dy, dx).  Every shared load lies
+    in its copy of the window and never reads a row's last word (copies
+    1..3 wrap it into the next row); the current rows, the staged map and
+    the window fit the block's shared memory."""
+    h, w = SHAPES[shape]
+    tl = me_variants_cuda.i8_tiles(h, w, search)
+    win_words = 4 * tl.mb_tile + 8
+    win_rows = me_cuda.TILE_DY * tl.n_dyt + 15
+    copy_words = win_rows * win_words
+    for m in range(tl.mb_tile):
+        for t in range(tl.n_dyt):
+            for g in range(tl.g_lo, tl.g_lo + tl.n_dxg):
+                seen = {}
+                for i, j, r, k, at in i8_pool_walk(tl, m, t, g):
+                    seen.setdefault((i, j), []).append((r, k))
+                    copy, word = divmod(at, copy_words)
+                    row, col = divmod(word, win_words)
+                    assert copy == j and row == me_cuda.TILE_DY * t + i + r
+                    assert col < win_words - 1
+                    dx = 4 * g + j - 16
+                    assert 4 * col + j == 16 * m + 16 + dx + 4 * k
+                assert len(seen) == 4 * me_cuda.TILE_DY
+                for pairs in seen.values():
+                    assert sorted(pairs) == [(r, k) for r in range(16)
+                                             for k in range(4)]
+    side = 2 * search + 1
+    smem = tl.aligned_smem_bytes(search, True)
+    assert smem <= me_cuda.SMEM_LIMIT
+    assert smem == 4 * max(4 * copy_words,
+                           4 * -(-side * side * tl.mb_tile // 4)) \
+        + 4 * 16 * 4 * tl.mb_tile
+    assert 1 <= tl.threads <= me_cuda.THREADS
+    assert (tl.tiles_per_row - 1) * tl.mb_tile < w // 16 \
+        <= tl.tiles_per_row * tl.mb_tile
+
+
+def test_i8_tiles_at_the_headline_shape():
+    """CIF at search 15: the search's tiles, 8 MBs of 32 threads per
+    block, 3 tiles per MB row; 32,800 bytes of shared memory (the search's
+    map mode less its keys)."""
+    tl = me_variants_cuda.i8_tiles(288, 352, 15)
+    assert tl == me_cuda.search_tiles(288, 352, 15)
+    assert tl.aligned_smem_bytes(15, True) == 32_800
+    assert tl.smem_bytes(15, True) == 32_800 + 8 * tl.threads
