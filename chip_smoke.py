@@ -78,6 +78,22 @@ run with a non-zero exit and no result line:
                  with resync: decode_stream on the card and on the CPU, and
                  parse_to_tensors + decode_seq on the card, give the same
                  refusal or equal planes
+ 17. bench    -- tools.bench's six configurations in this process at the
+                 tool's default shapes and reps (cif, cif_rc, cif_intra and
+                 qcif at 128 streams x 32 frames, decode 16 x 32, pipeline
+                 64 x 32 in chunks of 16): MB/s, best and every rep, bits
+                 and SAD-search launches of each; cif must total the
+                 headline's bits, cif_intra launch no SAD search, stream
+                 0's first frames give the CPU's bits in every encode
+                 configuration, and the decode checksum must equal phase
+                 10's reconstruction; then `python -m
+                 p64tpu_torch.tools.bench` once in a subprocess (the gate
+                 first), which must exit 0 after PARITY PASS with one JSON
+                 line naming the headline metric
+ 18. stages   -- tools.stage_bench's nine stages at 16 and 128 streams:
+                 device span, kernel busy time and host wall per
+                 iteration; at 1 stream their checksums on the card equal
+                 the CPU's
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -110,6 +126,13 @@ PARITY_STREAMS = 4
 SEARCH = 15
 #: the JAX decode benchmark's shape (bench.py measure_decode)
 MIX_STREAMS, MIX_FRAMES = 16, 32
+#: timed reps of each benchmark configuration (the tool's default), and
+#: stream 0's frames whose bits are held to the CPU's
+BENCH_REPS, CPU_FRAMES = 3, 3
+#: seconds the benchmark's subprocess may take, its gate included
+BENCH_TIMEOUT = 600
+#: stream counts and iterations of the stage bench (phase 18)
+STAGE_STREAMS, STAGE_ITERS = (16, 128), 30
 #: Python serializer's bytes are checked against the native engine's on
 #: this many headline streams
 ORACLE_STREAMS = 4
@@ -299,27 +322,6 @@ def sass_summary() -> dict:
             raise AssertionError(f"{name}'s SASS holds none of {needed}, "
                                  "which its formulation needs")
     return counts
-
-
-def bench_content(fmt, streams: int, frames_t: int, noise: int = 5):
-    """The JAX benchmark's deterministic content (bench.py `make_content`):
-    `noise` sets the per-pixel texture amplitude, 5 for the encode
-    headline, 40 for the decode mix's rate-controlled groups."""
-    import numpy as np
-    rng = np.random.default_rng(0)
-    h, w = fmt.height, fmt.width
-    yy, xx = np.mgrid[0:h, 0:w]
-    base = ((16 + (xx * 3 + yy * 2) // 8) % 200).astype(np.int32)
-    ys = np.empty((streams, frames_t, h, w), np.uint8)
-    for s in range(streams):
-        for t in range(frames_t):
-            b = base.copy()
-            x0 = (10 + 7 * t + 13 * s) % (w - 48)
-            y0 = (20 + 5 * t + 7 * s) % (h - 48)
-            b[y0:y0 + 48, x0:x0 + 48] += 50
-            ys[s, t] = np.clip(b + rng.integers(0, noise, (h, w)), 0, 255)
-    return dict(y=ys, cb=(ys[:, :, ::2, ::2] // 2 + 64).astype(np.uint8),
-                cr=(255 - ys[:, :, 1::2, ::2] // 2).astype(np.uint8))
 
 
 def parity_planes(kind: str, streams: int, h: int, w: int):
@@ -561,51 +563,6 @@ def headline(dev, dev_frames, card: str):
         f"each: {t_ser:.3f} s; first {ORACLE_STREAMS} streams' bytes == "
         f"Python serializer's ({t_py:.3f} s for those {ORACLE_STREAMS})")
     return launches, outputs, datas
-
-
-def decode_mix(dev, streams: int, frames_t: int):
-    """Encode the JAX decode benchmark's mixed content (bench.py
-    `_make_decode_content`) with the port on `dev`, search 15: half the
-    streams at a fixed quantizer, one in 16 at 4 Mbit/s (mostly MBA
-    stuffing fill), the rest at 2 Mbit/s with mid-GOB MQUANT segments;
-    texture noise 5 for the first group, 40 for the others.  Every frame
-    must be coded, and the mix must hold stuffing and MQUANT MBs.
-    Returns (stream bytes, recon planes (y, cb, cr) as (S, T, ...)
-    tensors on dev, stuffing codes, MQUANT MBs)."""
-    import numpy as np
-    import torch
-
-    from p64tpu_torch.control.ratecontrol import RateConfig
-    from p64tpu_torch.core import encoder as enc
-    from p64tpu_torch.spec.constants import CIF
-    from p64tpu_torch.spec.luts import MTYPE_MQUANT
-
-    datas, recons, n_stuff, n_mq = [], [], 0, 0
-    mq_types = torch.as_tensor(np.flatnonzero(MTYPE_MQUANT), device=dev)
-    n_a = streams // 2
-    n_b = max(1, streams // 16)
-    groups = ((n_a, dict(fixed_quant=HEADLINE_QUANT), 5),
-              (n_b, dict(bit_rate=4_000_000, frame_rate=30), 40),
-              (streams - n_a - n_b,
-               dict(bit_rate=2_000_000, frame_rate=30, mquant_segments=3,
-                    initial_quant=12), 40))
-    for n, rate, noise in groups:
-        cfg = enc.EncoderConfig(fmt=CIF, search=SEARCH,
-                                rate=RateConfig(**rate))
-        data, outputs, _ = enc.encode_to_bytes(
-            cfg, bench_content(CIF, n, frames_t, noise), device=dev)
-        if not bool(outputs["frame_coded"].all()):
-            raise AssertionError(f"decode mix group {rate} skipped frames")
-        n_stuff += int(outputs["n_stuff"].sum())
-        n_mq += int(torch.isin(outputs["mtype"], mq_types).sum())
-        datas.extend(data)
-        recons.append([outputs[k] for k in ("recon_y", "recon_cb",
-                                            "recon_cr")])
-    if n_stuff == 0 or n_mq == 0:
-        raise AssertionError(f"decode mix holds {n_stuff} stuffing codes and "
-                             f"{n_mq} MQUANT MBs; both must be present")
-    return (datas, tuple(torch.cat(p) for p in zip(*recons)), n_stuff,
-            n_mq)
 
 
 def decode_check(what: str, datas, recon, dev, card: str) -> dict:
@@ -968,6 +925,7 @@ def multihost_worker(spec: dict) -> int:
     from p64tpu_torch.distrib import multihost
     from p64tpu_torch.kernels import me_cuda
     from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.tools.bench import make_content
 
     if not torch.cuda.is_available():
         print("multihost worker: no CUDA device", file=sys.stderr)
@@ -984,7 +942,7 @@ def multihost_worker(spec: dict) -> int:
                                 init_method=f"tcp://{address}",
                                 world_size=1, rank=0)
     try:
-        frames = bench_content(CIF, spec["streams"], spec["frames"])
+        frames = make_content(CIF, spec["streams"], spec["frames"])
         n = spec["streams"] // world
         local = {k: v[rank * n:(rank + 1) * n] for k, v in frames.items()}
         cfg = headline_cfg(emit_recon=False)
@@ -1049,6 +1007,7 @@ def multihost_phase(dev, datas, lengths, card: str) -> dict:
     NCCL rank on a small batch; returns each rank's SAD launches."""
     from p64tpu_torch.core import encoder as enc
     from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.tools.bench import make_content
 
     t0 = time.perf_counter()
     port = _free_port()
@@ -1082,7 +1041,7 @@ def multihost_phase(dev, datas, lengths, card: str) -> dict:
 
     s, t = NCCL_BATCH
     want, out, _ = enc.encode_to_bytes(
-        headline_cfg(emit_recon=False), bench_content(CIF, s, t), device=dev)
+        headline_cfg(emit_recon=False), make_content(CIF, s, t), device=dev)
     want_len = out["total_bits"].sum(dim=1).tolist()
     (g,) = run_workers([dict(backend="nccl", rank=0, world=1,
                              port=_free_port(), streams=s, frames=t)])
@@ -1130,6 +1089,135 @@ def profile_phase(card: str) -> int:
     return me_cuda.LAUNCHES
 
 
+def _reps(r: dict) -> str:
+    return ", ".join(f"{ms:.1f}" for ms in r["rep_ms"])
+
+
+def bench_phase(dev, mix_luma: int, card: str) -> int:
+    """Phase 17: tools.bench's six configurations in this process at the
+    tool's default shapes and reps, each checked; then the benchmark's
+    command in a subprocess.  `mix_luma` is the luma sum of phase 10's
+    reconstruction of the same decode content.  Returns the SAD-search
+    launches of the in-process runs."""
+    from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.tools import bench
+
+    total = 0
+    for config in bench.ENCODE_CONFIGS:
+        me_cuda.LAUNCHES = 0
+        r = bench.measure(config, HEADLINE_STREAMS, HEADLINE_FRAMES,
+                          BENCH_REPS, HEADLINE_QUANT, device=dev)
+        launches = me_cuda.LAUNCHES
+        total += launches
+        cpu = bench.measure(config, 1, CPU_FRAMES, 0, HEADLINE_QUANT,
+                            device="cpu")
+        head = sum(r["stream0_frame_bits"][:CPU_FRAMES])
+        if head != cpu["bits"]:
+            raise AssertionError(f"bench {config}: stream 0's first "
+                                 f"{CPU_FRAMES} frames {head} bits on the "
+                                 f"card, {cpu['bits']} on the CPU")
+        if config == "cif" and r["bits"] != HEADLINE_BITS:
+            raise AssertionError(f"bench cif: {r['bits']} bits != "
+                                 f"{HEADLINE_BITS}")
+        if config == "cif_intra" and launches:
+            raise AssertionError(f"bench cif_intra: {launches} SAD-search "
+                                 "launches, expected none")
+        if config != "cif_intra" and launches < HEADLINE_FRAMES:
+            raise AssertionError(f"bench {config}: {launches} SAD-search "
+                                 f"launches, expected >= {HEADLINE_FRAMES}")
+        log(f"[bench] {config} {HEADLINE_STREAMS}x{HEADLINE_FRAMES}: "
+            f"{r['mbs']:.0f} MB/s, best {r['ms']:.1f} ms of reps "
+            f"{_reps(r)} ms, warm-up {r['compile_s']:.2f} s, {r['bits']} "
+            f"bits, sad_search launches {launches}; stream 0's first "
+            f"{CPU_FRAMES} frames {head} bits == CPU, on {card}")
+
+    me_cuda.LAUNCHES = 0
+    r = bench.measure_decode(device=dev)
+    total += me_cuda.LAUNCHES
+    if r["checksum"] != mix_luma:
+        raise AssertionError(f"bench decode: luma checksum {r['checksum']} "
+                             f"!= phase 10's reconstruction {mix_luma}")
+    log(f"[bench] decode {r['streams']}x{HEADLINE_FRAMES}: {r['mbs']:.0f} "
+        f"MB/s, best {r['ms']:.1f} ms of reps {_reps(r)} ms (parse "
+        f"{r['parse_ms']:.1f} + device {r['device_ms']:.1f} ms, "
+        f"{r['overlap_hidden']:.0%} of parse hidden), {r['bits']} bits, "
+        f"luma checksum == phase 10's; sad_search launches (content) "
+        f"{me_cuda.LAUNCHES}, on {card}")
+
+    me_cuda.LAUNCHES = 0
+    r = bench.measure_pipeline(device=dev)
+    total += me_cuda.LAUNCHES
+    if me_cuda.LAUNCHES < HEADLINE_FRAMES:
+        raise AssertionError(f"bench pipeline: {me_cuda.LAUNCHES} "
+                             "SAD-search launches")
+    log(f"[bench] pipeline {r['streams']}x{HEADLINE_FRAMES}: {r['mbs']:.0f} "
+        f"MB/s, best {r['ms']:.1f} ms of reps {_reps(r)} ms (device "
+        f"{r['device_ms']:.1f} + fetch and finalize {r['finalize_ms']:.1f} "
+        f"ms, {r['overlap_hidden']:.0%} of finalize hidden), warm-up "
+        f"{r['compile_s']:.2f} s, {r['bits']} bits, sad_search launches "
+        f"{me_cuda.LAUNCHES}, on {card}")
+
+    import torch
+    torch.cuda.empty_cache()       # the subprocess needs the card's memory
+    env = {k: v for k, v in os.environ.items() if not k.startswith("P64_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "p64tpu_torch.tools.bench"],
+                       cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"tools.bench exit {p.returncode}, stdout "
+                             f"{p.stdout!r}:\n{p.stderr[-4000:]}")
+    out = json.loads(lines[0])
+    err = p.stderr.splitlines()
+    if out.get("metric") != "cif_encode_macroblocks_per_sec_per_chip" \
+            or not out.get("value") or "[parity] PARITY PASS" not in err \
+            or not err[0].startswith(card):
+        raise AssertionError(f"tools.bench printed {out}; stderr:\n"
+                             f"{p.stderr[-4000:]}")
+    for line in err:
+        if line.startswith(("rep ", "total bits", "warm-up")):
+            log(f"[bench] tools.bench: {line}")
+    log(f"[bench] python -m p64tpu_torch.tools.bench: exit 0 after PARITY "
+        f"PASS, {wall:.1f} s; stdout {lines[0]}")
+    return total
+
+
+def stage_phase(dev, card: str) -> int:
+    """Phase 18: tools.stage_bench's stages at STAGE_STREAMS streams on the
+    card, then their checksums at 1 stream on the card and the CPU.
+    Returns the SAD-search launches of the timed runs."""
+    from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.tools import stage_bench
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
+    me_cuda.LAUNCHES = 0
+    for streams in STAGE_STREAMS:
+        res = stage_bench.run_stages(stage_bench.STAGES, streams, STAGE_ITERS,
+                                     device=dev)
+        for name, r in res.items():
+            log(f"[stages] {streams} streams {name}: device "
+                f"{ms(r.device_ms)}, busy {ms(r.busy_ms)}, wall "
+                f"{ms(r.wall_ms)} ms/iter on {card}")
+    launches = me_cuda.LAUNCHES
+    if launches < 2 * STAGE_ITERS:
+        raise AssertionError(f"stage bench: {launches} SAD-search launches")
+    on_card = stage_bench.run_stages(stage_bench.STAGES, 1, 2, device=dev)
+    on_cpu = stage_bench.run_stages(stage_bench.STAGES, 1, 2, device="cpu")
+    bad = [n for n in stage_bench.STAGES
+           if on_card[n].checksum != on_cpu[n].checksum]
+    if bad:
+        raise AssertionError(f"stage bench checksums differ on the card and "
+                             f"the CPU: {bad}")
+    log(f"[stages] 1 stream x 2 iterations: all {len(on_cpu)} checksums "
+        f"on the card == CPU; sad_search launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "--multihost-worker":
@@ -1151,6 +1239,7 @@ def main() -> int:
 
     from p64tpu_torch.kernels import me, me_cuda, me_variants_cuda
     from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.tools.bench import make_content, make_decode_content
     from p64tpu_torch.tools.parity import sad_oracle
 
     dev = torch.device("cuda", 0)
@@ -1201,7 +1290,7 @@ def main() -> int:
     map_launches = gate()
 
     # 6. headline shape
-    frames = bench_content(CIF, HEADLINE_STREAMS, HEADLINE_FRAMES)
+    frames = make_content(CIF, HEADLINE_STREAMS, HEADLINE_FRAMES)
     dev_frames = {k: torch.as_tensor(v, device=dev) for k, v in frames.items()}
     for name in me_variants_cuda.LAUNCHES:
         me_variants_cuda.LAUNCHES[name] = 0
@@ -1247,10 +1336,13 @@ def main() -> int:
         "recon_y", "recon_cb", "recon_cr")), dev, card)
 
     # 10. the decode benchmark's mix, encoded and decoded on the card
-    mix, mix_recon, n_stuff, n_mq = decode_mix(dev, MIX_STREAMS, MIX_FRAMES)
+    mix, n_stuff, n_mq, mix_recon = make_decode_content(
+        MIX_STREAMS, MIX_FRAMES, HEADLINE_QUANT, device=dev)
     log(f"[mix] {len(mix)} CIF streams x {MIX_FRAMES} frames encoded: "
         f"{n_stuff} stuffing codes, {n_mq} MQUANT MBs")
     decode_check("mix", mix, mix_recon, dev, card)
+    mix_luma = int(mix_recon[0].sum())
+    del mix_recon
 
     # 11. the pins decoded on the card and on the CPU
     pins_decoded(pins, dev)
@@ -1276,6 +1368,12 @@ def main() -> int:
         f"pins (seed {RESYNC_SEED}): {counts['decoded']} decoded, "
         f"{counts['refused']} refused, the same on the card, the CPU and "
         "parse_to_tensors + decode_seq")
+
+    # 17. the benchmark's six configurations, then its command
+    by_path["bench"] = bench_phase(dev, mix_luma, card)
+
+    # 18. the stage bench at 16 and 128 streams
+    by_path["stage_bench"] = stage_phase(dev, card)
 
     log(card)
     kernels = [{

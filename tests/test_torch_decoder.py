@@ -22,6 +22,7 @@ from p64tpu_torch.core import encoder as tenc
 from p64tpu_torch.entropy.parse import StreamError
 from p64tpu_torch.spec.constants import CIF, QCIF
 from p64tpu_torch.spec.luts import MTYPE_MQUANT
+from p64tpu_torch.tools import bench
 from p64tpu_torch.tools import golden_content as gc
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -132,7 +133,8 @@ def test_resync_concealment_equals_jax():
 def test_decode_bench_mix_slice_equals_jax():
     """4 CIF streams x 3 frames of the decode-benchmark mix (fixed q,
     stuffing-heavy and MQUANT rate control), decoded as one batch."""
-    datas, recon, n_stuff, n_mq = chip_smoke.decode_mix("cpu", 4, 3)
+    datas, n_stuff, n_mq, recon = bench.make_decode_content(4, 3, 10,
+                                                            device="cpu")
     assert n_stuff > 0 and n_mq > 0
     parsed = [tdec.parse_to_tensors(d) for d in datas]
     assert all(p[0] is CIF for p in parsed)

@@ -1,6 +1,7 @@
 """The port stands without the JAX package: no file of `p64tpu_torch/` and
-not `chip_smoke.py` imports `p64tpu` or `p64tpu.*`, the native engine
-builds from the port's own copy of its source, and the modules the port
+not `chip_smoke.py` imports `p64tpu` or `p64tpu.*`, `jax`, or the JAX
+package's tools at the repository root (`bench`, `tools.*`), the native
+engine builds from the port's own copy of its source, and the modules the port
 copied from the JAX package (the H.261 spec tables, the Python bit I/O,
 YUV I/O, statistics and the golden content) give the JAX package's values,
 so the two packages keep one bitstream contract."""
@@ -43,8 +44,15 @@ def _port_sources():
     return sorted(files)
 
 
+#: top-level modules the port must not import: the JAX package, JAX, and
+#: the JAX package's tools at the repository root (`bench.py`, `tools/`)
+FORBIDDEN = ("p64tpu", "jax", "jaxlib", "bench", "tools")
+
+
 def _jax_package_imports(path):
-    """(line, module) of every import of p64tpu or p64tpu.* in path."""
+    """(line, module) of every absolute import in path of a FORBIDDEN
+    module or one of its submodules (relative imports are the port's
+    own)."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     found = []
@@ -56,7 +64,7 @@ def _jax_package_imports(path):
         else:
             continue
         for name in names:
-            if name == "p64tpu" or name.startswith("p64tpu."):
+            if name.split(".")[0] in FORBIDDEN:
                 found.append((node.lineno, name))
     return found
 
@@ -78,6 +86,26 @@ def test_the_import_scan_finds_an_import_of_the_jax_package(tmp_path):
                    "from . import p64tpu\n")
     assert _jax_package_imports(str(src)) == [
         (2, "p64tpu"), (3, "p64tpu.spec"), (6, "p64tpu.io.yuv")]
+
+
+def test_the_import_scan_finds_imports_of_jax_and_the_repo_tools(tmp_path):
+    """bench.py and tools/ at the repository root are the JAX package's
+    tools; the port's own tools (p64tpu_torch.tools) pass."""
+    src = tmp_path / "m.py"
+    src.write_text("import bench\nfrom tools import stage_bench\n"
+                   "import tools.bench_breadth as bb\nimport jax.numpy\n"
+                   "from p64tpu_torch.tools import bench\n"
+                   "from ..tools import stage_bench\nimport benchmark\n"
+                   "from p64tpu_torch import tools\n")
+    assert _jax_package_imports(str(src)) == [
+        (1, "bench"), (2, "tools"), (3, "tools.bench_breadth"),
+        (4, "jax.numpy")]
+
+
+def test_the_port_has_its_benchmark_tools():
+    names = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {os.path.join("tools", f"{n}.py") for n in
+            ("bench", "stage_bench", "bench_breadth")} <= names
 
 
 def test_native_source_lies_inside_the_port():
