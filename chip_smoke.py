@@ -74,10 +74,10 @@ run with a non-zero exit and no result line:
  15. profile  -- tools.profile on the card with a trace: exit 0, a Chrome
                  trace and the table of operators by self CUDA time
  16. resync   -- damaged copies of the thirteen pinned streams (the
-                 reference fuzzer's four corruption modes, seeded) decoded
-                 with resync: decode_stream on the card and on the CPU, and
-                 parse_to_tensors + decode_seq on the card, give the same
-                 refusal or equal planes
+                 differential fuzz's four corruption modes, seeded) decoded
+                 with resync through decode_stream and parse_to_tensors +
+                 decode_seq, on the card and on the CPU: the same refusal or
+                 equal planes
  17. bench    -- tools.bench's six configurations in this process at the
                  tool's default shapes and reps (cif, cif_rc, cif_intra and
                  qcif at 128 streams x 32 frames, decode 16 x 32, pipeline
@@ -94,6 +94,16 @@ run with a non-zero exit and no result line:
                  device span, kernel busy time and host wall per
                  iteration; at 1 stream their checksums on the card equal
                  the CPU's
+ 19. fuzz     -- tools.fuzz_encoder over 40 sampled configurations (seed
+                 77: QCIF/CIF, 1-5 frames, search 0-15, fixed q or rate
+                 control with MQUANT segments, six content families), each
+                 encoded on the card and on the CPU: equal bytes, bits,
+                 coded flags and reconstruction, the contract held, and the
+                 SAD-search kernel launched on every frame of every inter
+                 sample and never for an intra-only one; then
+                 tools.fuzz_differential over 400 corrupted streams (seed
+                 999): both parsers, both decode paths, the card and the CPU
+                 agree on fields, strict outcome and planes or refusal
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -140,6 +150,10 @@ ORACLE_STREAMS = 4
 KERNEL_LIB = "sad_search"
 #: damaged copies of each pinned stream in the resync phase, and their seed
 RESYNC_PER_PIN, RESYNC_SEED = 8, 16
+#: the fuzz phase: encoder samples and their seed, corrupted streams and
+#: their seed (the reference tools' default seeds)
+FUZZ_SAMPLES, FUZZ_ENCODER_SEED = 40, 77
+FUZZ_STREAMS, FUZZ_DECODE_SEED = 400, 999
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -636,97 +650,36 @@ def pins_decoded(pins: dict, dev) -> None:
 
 def damaged_streams(streams: dict, per_stream: int, seed: int):
     """`per_stream` damaged copies of each of `streams` (name -> bytes), by
-    the reference fuzzer's four corruption modes (tools/fuzz_differential.py)
-    drawn from one seeded generator: 0 flips 1-6 bits, 1 truncates and
-    flips a bit, 2 splices another stream's tail after a prefix, 3
-    overwrites a span of up to 63 random bytes.  Yields (name, mode,
-    bytes)."""
+    the differential fuzz's four corruption modes
+    (tools.fuzz_differential.corrupt) drawn from one seeded generator, the
+    other streams the splice pool.  Yields (name, mode, bytes)."""
     import numpy as np
+
+    from p64tpu_torch.tools.fuzz_differential import corrupt
 
     rng = np.random.default_rng(seed)
     pool = [streams[k] for k in sorted(streams)]
     for name in sorted(streams):
         for _ in range(per_stream):
-            d = bytearray(streams[name])
-            mode = int(rng.integers(4))
-            if mode == 0:
-                for _ in range(1 + int(rng.integers(6))):
-                    p = int(rng.integers(len(d)))
-                    d[p] ^= 1 << int(rng.integers(8))
-            elif mode == 1:
-                d = d[:int(rng.integers(1, len(d)))]
-                if len(d) > 2:
-                    p = int(rng.integers(len(d)))
-                    d[p] ^= 1 << int(rng.integers(8))
-            elif mode == 2:
-                other = pool[int(rng.integers(len(pool)))]
-                d = (d[:int(rng.integers(len(d)))]
-                     + other[int(rng.integers(len(other))):])
-            else:
-                p = int(rng.integers(len(d)))
-                n = int(rng.integers(1, 64))
-                d[p:p + n] = bytes(rng.integers(0, 256, min(n, len(d) - p),
-                                                dtype=np.uint8))
-            yield name, mode, bytes(d)
-
-
-def _planes_or_refusal(fn):
-    """fn()'s (y, cb, cr) as numpy arrays, or the ValueError the stream
-    drew (StreamError is one); any other error, a CUDA fault among them,
-    propagates."""
-    import numpy as np
-
-    try:
-        return tuple(np.asarray(p) for p in fn()[:3])
-    except ValueError as e:
-        return e
+            yield (name, *corrupt(rng, streams[name], pool))
 
 
 def resync_phase(streams: dict, dev, per_stream: int, seed: int) -> dict:
     """Phase 16: damaged copies of `streams` decoded with resync through
-    decode_stream on `dev` and on the CPU, and through parse_to_tensors +
-    decode_seq on `dev`.  All three must refuse (a ValueError) or give
-    equal planes; a divergence raises with its first diverging plane and
+    decode_stream and through parse_to_tensors + decode_seq, on `dev` and,
+    when that is the card, on the CPU (tools.fuzz_differential
+    .decode_difference).  All must refuse (a ValueError) or give equal
+    planes; a divergence raises with its first diverging path, plane and
     index.  Returns the counts of decoded and refused streams."""
-    import numpy as np
-
-    from p64tpu_torch.core import decoder
-
-    def on_tensors(d):
-        fmt, _, seq = decoder.parse_to_tensors(d, resync=True)
-        return decoder.decode_seq(fmt, seq, device=dev)
+    from p64tpu_torch.tools.fuzz_differential import decode_difference
 
     counts = {"decoded": 0, "refused": 0}
     for name, mode, d in damaged_streams(streams, per_stream, seed):
-        got = {
-            "decode_stream card": _planes_or_refusal(
-                lambda: decoder.decode_stream(d, resync=True, device=dev)),
-            "decode_stream cpu": _planes_or_refusal(
-                lambda: decoder.decode_stream(d, resync=True, device="cpu")),
-            "parse_to_tensors + decode_seq card": _planes_or_refusal(
-                lambda: on_tensors(d)),
-        }
-        (ref_name, ref), *rest = got.items()
-        what = f"{name}, mode {mode}, {len(d)} bytes"
-        for path, planes in rest:
-            if isinstance(ref, ValueError) or isinstance(planes, ValueError):
-                if not (isinstance(ref, ValueError)
-                        and isinstance(planes, ValueError)):
-                    raise AssertionError(f"resync {what}: {ref_name} gave "
-                                         f"{ref!r:.200}, {path} {planes!r:.200}")
-                continue
-            for plane, a, b in zip(("y", "cb", "cr"), ref, planes):
-                if a.shape != b.shape:
-                    raise AssertionError(f"resync {what}: {plane} shape "
-                                         f"{a.shape} ({ref_name}) != "
-                                         f"{b.shape} ({path})")
-                bad = np.argwhere(a != b)
-                if bad.size:
-                    at = tuple(int(i) for i in bad[0])
-                    raise AssertionError(
-                        f"resync {what}: {plane} first differs at {at}: "
-                        f"{ref_name} {a[at]}, {path} {b[at]}")
-        counts["refused" if isinstance(ref, ValueError) else "decoded"] += 1
+        refused, diff = decode_difference(d, dev)
+        if diff is not None:
+            raise AssertionError(f"resync {name}, mode {mode}, {len(d)} "
+                                 f"bytes: {diff}")
+        counts["refused" if refused else "decoded"] += 1
     return counts
 
 
@@ -1218,6 +1171,46 @@ def stage_phase(dev, card: str) -> int:
     return launches
 
 
+def fuzz_phase(dev, card: str) -> dict:
+    """Phase 19: the encoder config fuzz, card against CPU, then the decode
+    differential fuzz on the card and the CPU; a failing sample or a
+    disagreeing stream raises.  Returns each kernel's launches during the
+    encoder fuzz."""
+    from p64tpu_torch.kernels import me_cuda, me_variants_cuda
+    from p64tpu_torch.tools import fuzz_differential, fuzz_encoder
+
+    me_cuda.LAUNCHES = 0
+    for name in me_variants_cuda.LAUNCHES:
+        me_variants_cuda.LAUNCHES[name] = 0
+    enc = fuzz_encoder.run(dev, FUZZ_ENCODER_SEED, count=FUZZ_SAMPLES)
+    launches = {"sad_search": me_cuda.LAUNCHES, **me_variants_cuda.LAUNCHES}
+    inter = enc["configs"] - enc["intra_only"]
+    if launches["sad_search"] != enc["sad_launches"] or inter < 1:
+        raise AssertionError(f"fuzz: {launches['sad_search']} SAD-search "
+                             f"launches, the samples counted "
+                             f"{enc['sad_launches']}, {inter} inter samples")
+    missing = set(fuzz_encoder.SEARCHES) - set(enc["searches"])
+    if missing:
+        raise AssertionError(f"fuzz: no sample searched {sorted(missing)}")
+    log(f"[fuzz] encoder config fuzz, seed {FUZZ_ENCODER_SEED}: "
+        f"{enc['configs']} samples, card == CPU in bytes, bits, coded flags "
+        f"and reconstruction, every contract held; {enc['cif']} CIF, "
+        f"{enc['rate_controlled']} rate-controlled, {enc['skipped']} with a "
+        f"skipped frame, {enc['intra_only']} intra only; samples per search "
+        f"{enc['searches']}; sad_search launches {launches['sad_search']} "
+        f"(once per frame of the {inter} inter samples), map kernels "
+        f"{sum(launches.values()) - launches['sad_search']}; "
+        f"{enc['seconds']:.1f} s on {card}")
+    dec = fuzz_differential.run(dev, FUZZ_DECODE_SEED, count=FUZZ_STREAMS)
+    log(f"[fuzz] decode differential fuzz, seed {FUZZ_DECODE_SEED}: "
+        f"{dec['streams']} corrupted streams (modes {dec['modes']}): "
+        f"{dec['decoded']} decoded, {dec['refused']} refused, "
+        f"{dec['strict_accepted']} accepted in strict mode; both parsers, "
+        f"both decode paths and card == CPU agree on every one; "
+        f"{dec['seconds']:.1f} s on {card}")
+    return launches
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "--multihost-worker":
@@ -1375,6 +1368,10 @@ def main() -> int:
     # 18. the stage bench at 16 and 128 streams
     by_path["stage_bench"] = stage_phase(dev, card)
 
+    # 19. the encoder config fuzz and the decode differential fuzz
+    fuzz = fuzz_phase(dev, card)
+    by_path["fuzz"] = fuzz["sad_search"]
+
     log(card)
     kernels = [{
         "name": "sad_search", "route": "cuda",
@@ -1391,7 +1388,9 @@ def main() -> int:
             "source": f"p64tpu_torch/csrc/{KERNEL_LIB}.cu",
             "replaces": f"p64tpu/kernels/me_pallas.py:{replaces}",
             "launches": map_launches[name],
-            "main_path_launches": main_path[name], **maps[name],
+            "main_path_launches": main_path[name],
+            "launches_by_path": {"gate": map_launches[name],
+                                 "fuzz": fuzz[name]}, **maps[name],
             "library_ms": None, "ptxas": ptxas[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions, on the card: the
 SAD-search kernel and the four SAD-map kernels; the decoder on the card
 against its CPU decode and the encoder's reconstruction; the batch
-encoder, the stream mesh, checkpoints and the profiler on the card.
+encoder, the stream mesh, checkpoints, the profiler and the encoder fuzz
+on the card.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they also run on a GPU host without it:
@@ -47,9 +48,12 @@ def _planes(seed, shape, device, kind="random"):
             torch.as_tensor(ref.astype(np.uint8), device=device))
 
 
-#: one MB row, a small picture, QCIF and CIF (ragged last MB tiles)
-SHAPES = [(2, 16, 64), (2, 48, 64), (2, 144, 176), (3, 288, 352)]
-SEARCHES = [0, 1, 4, 7, 15]
+#: one MB row, a small picture, QCIF and CIF (ragged last MB tiles), and
+#: one stream of each format, as the encoder fuzz encodes them
+SHAPES = [(2, 16, 64), (2, 48, 64), (2, 144, 176), (3, 288, 352),
+          (1, 144, 176), (1, 288, 352)]
+#: every search range the encoder fuzz samples, and 4
+SEARCHES = [0, 1, 2, 3, 4, 7, 15]
 
 
 @pytest.mark.cuda
@@ -283,3 +287,17 @@ def test_profile_on_the_card_writes_a_trace(cuda, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "steady state" in out and "Self CUDA" in out
     assert (tmp_path / "trace.json").exists()
+
+
+@pytest.mark.cuda
+def test_encoder_fuzz_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch,
+                                                capsys):
+    from p64tpu_torch.tools import fuzz_encoder
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("FUZZ_SEED", "77")
+    assert fuzz_encoder.main(["--count", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("encoder config fuzz: 4 configs, all contracts "
+                          "held")
+    assert not list(tmp_path.iterdir())

@@ -24,6 +24,7 @@ from p64tpu_torch.spec.constants import CIF, QCIF
 from p64tpu_torch.spec.luts import MTYPE_MQUANT
 from p64tpu_torch.tools import bench
 from p64tpu_torch.tools import golden_content as gc
+from p64tpu_torch.tools.fuzz_differential import planes_or_refusal
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -160,9 +161,9 @@ def test_resync_phase_on_cpu(fixed_q, rate_controlled):
     modes = set()
     for name, mode, d in chip_smoke.damaged_streams(streams, per, seed):
         modes.add(mode)
-        port = chip_smoke._planes_or_refusal(
+        port = planes_or_refusal(
             lambda: tdec.decode_stream(d, resync=True, device="cpu"))
-        want = chip_smoke._planes_or_refusal(
+        want = planes_or_refusal(
             lambda: _jax_decode(d, resync=True))
         what = f"{name}, mode {mode}"
         assert isinstance(port, ValueError) == isinstance(want, ValueError), \

@@ -4,8 +4,9 @@ refuses `jax`, `jaxlib`, `p64tpu` and every `p64tpu.*`, the port imports
 every module (the benchmark tools among them), encodes QCIF at a fixed
 quantizer and under rate control with MQUANT segments, decodes both
 streams through the native engine, runs the parity gate's SAD checks on
-the CPU, encodes on a mesh of two CPU shards, round-trips a checkpoint and
-builds the benchmark's content and stage inputs."""
+the CPU, encodes on a mesh of two CPU shards, round-trips a checkpoint,
+builds the benchmark's content and stage inputs and runs both fuzz tools
+briefly."""
 
 import os
 import subprocess
@@ -45,7 +46,8 @@ import p64tpu_torch
 from p64tpu_torch import cli
 from p64tpu_torch.kernels import me_variants, me_variants_cuda
 from p64tpu_torch.tools import (batch_decode, batch_encode, bench,
-                                bench_breadth, parity, pinned, profile,
+                                bench_breadth, fuzz_differential,
+                                fuzz_encoder, parity, pinned, profile,
                                 stage_bench)
 from p64tpu_torch.distrib import mesh, multihost
 from p64tpu_torch.io import checkpoint
@@ -91,6 +93,8 @@ assert streams == [sh_data[1][0]] and meta == {"frames": 2}
 assert all(torch.equal(st[k], v) for k, v in states[1].items())
 assert bench.make_content(QCIF, 1, 1)["y"].shape == (1, 1, 144, 176)
 assert set(stage_bench.make_stages(1, "cpu")) == set(stage_bench.STAGES)
+assert fuzz_encoder.run("cpu", count=1)["configs"] == 1
+assert fuzz_differential.run("cpu", count=2)["streams"] == 2
 assert "bench" not in sys.modules and "tools" not in sys.modules
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
