@@ -91,9 +91,10 @@ run with a non-zero exit and no result line:
                  first), which must exit 0 after PARITY PASS with one JSON
                  line naming the headline metric
  18. stages   -- tools.stage_bench's nine stages at 16 and 128 streams:
-                 device span, kernel busy time and host wall per
-                 iteration; at 1 stream their checksums on the card equal
-                 the CPU's
+                 the captured loop's replay span (its checksum equal to the
+                 eager loop's), eager kernel busy time and eager host wall
+                 per iteration; at 1 stream their checksums on the card
+                 equal the CPU's
  19. fuzz     -- tools.fuzz_encoder over 40 sampled configurations (seed
                  77: QCIF/CIF, 1-5 frames, search 0-15, fixed q or rate
                  control with MQUANT segments, six content families), each
@@ -104,17 +105,43 @@ run with a non-zero exit and no result line:
                  tools.fuzz_differential over 400 corrupted streams (seed
                  999): both parsers, both decode paths, the card and the CPU
                  agree on fields, strict outcome and planes or refusal
+ 20. graphs   -- the captured programs (core.graphs) against the eager
+                 loops: cif, cif_rc, cif_intra and qcif at 16 and 128
+                 streams x 32 frames of the benchmark content,
+                 encode_sequence (replayed) equal to encode_sequence_eager
+                 in every output and the final state (cif at 128 totals
+                 the headline's bits), each with its capture seconds, pool
+                 MB and per-frame wall, graph against eager; phase 10's mix
+                 through reconstruct_seq equal to reconstruct_seq_eager;
+                 in a worker process, torch.profiler counts one
+                 sad_search_kernel execution in each replay of a replayed
+                 cif encode (equal to the launch count) and none for
+                 cif_intra, on a trace that holds every replay's kernels
+                 (one that lost records is logged and taken again on a
+                 rebuilt program, at most PROFILE_ATTEMPTS in all); one
+                 eager frame step of each
+                 configuration and one reconstruct step under
+                 torch.cuda.set_sync_debug_mode("error"); then
+                 tools.capture_probe on base16 and s1
+
+From phase 4 on, every encode_sequence and reconstruct_seq on the card
+replays a captured program (core.graphs): the pins, the headline, the
+batch encoder, the checkpoint resume, the worker processes, the profiler,
+the benchmark and the fuzz campaigns.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --multihost-worker '{"backend": ...}'
+    python3 chip_smoke.py --profile-worker '{"configs": ["cif", ...]}'
 
-runs one worker of phase 14; the phase starts them itself.
+run one worker of phase 14 and phase 20's profiler count; the phases
+start them themselves.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import io
@@ -150,6 +177,17 @@ ORACLE_STREAMS = 4
 KERNEL_LIB = "sad_search"
 #: damaged copies of each pinned stream in the resync phase, and their seed
 RESYNC_PER_PIN, RESYNC_SEED = 8, 16
+#: stream counts of the graph phase's encodes (graph against eager), and
+#: the capture probe's variants it runs
+GRAPH_STREAMS, PROBE_VARIANTS = (16, 128), ("base16", "s1")
+#: configurations whose replayed encode the graph phase profiles -> the
+#: SAD-search kernels each replay runs
+PROFILED = {"cif": 1, "cif_intra": 0}
+#: profiled replayed encodes a configuration may take to get one trace that
+#: holds every kernel of every replay: the profiler can lose kernel records
+#: (about 15,000 of them in a cif encode), on a loaded host and late in a
+#: process that has profiled before
+PROFILE_ATTEMPTS = 5
 #: the fuzz phase: encoder samples and their seed, corrupted streams and
 #: their seed (the reference tools' default seeds)
 FUZZ_SAMPLES, FUZZ_ENCODER_SEED = 40, 77
@@ -927,14 +965,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_workers(specs) -> list:
-    """Start one chip_smoke.py worker per spec, all at once; each must exit
-    0 within WORKER_TIMEOUT, or every worker is killed and this raises.
-    Returns each worker's JSON line."""
+def run_workers(specs, kind: str = "multihost") -> list:
+    """Start one chip_smoke.py worker of `kind` (a key of WORKERS) per
+    spec, all at once; each must exit 0 within WORKER_TIMEOUT, or every
+    worker is killed and this raises.  Returns each worker's JSON line."""
     env = dict(os.environ)
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-worker",
          json.dumps(spec)], cwd=HERE, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for spec in specs]
     deadline = time.monotonic() + WORKER_TIMEOUT
@@ -949,7 +987,7 @@ def run_workers(specs) -> list:
     results = []
     for spec, p, (out, err) in zip(specs, procs, outs):
         if p.returncode != 0:
-            raise AssertionError(f"multihost worker {spec} exit "
+            raise AssertionError(f"{kind} worker {spec} exit "
                                  f"{p.returncode}:\n{out}{err[-4000:]}")
         results.append(json.loads(out.strip().splitlines()[-1]))
     return results
@@ -1153,8 +1191,8 @@ def stage_phase(dev, card: str) -> int:
         res = stage_bench.run_stages(stage_bench.STAGES, streams, STAGE_ITERS,
                                      device=dev)
         for name, r in res.items():
-            log(f"[stages] {streams} streams {name}: device "
-                f"{ms(r.device_ms)}, busy {ms(r.busy_ms)}, wall "
+            log(f"[stages] {streams} streams {name}: graph replay "
+                f"{ms(r.device_ms)}, eager busy {ms(r.busy_ms)}, eager wall "
                 f"{ms(r.wall_ms)} ms/iter on {card}")
     launches = me_cuda.LAUNCHES
     if launches < 2 * STAGE_ITERS:
@@ -1211,13 +1249,259 @@ def fuzz_phase(dev, card: str) -> dict:
     return launches
 
 
+def _equal_or_raise(what: str, got: dict, want: dict) -> None:
+    """Every key of `want` equal in `got`, bit for bit; raises naming the
+    first diverging key and its first diverging index."""
+    import torch
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} {k}: {g.dtype}{tuple(g.shape)} != "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if not torch.equal(g, w):
+            idx = tuple(int(i) for i in (g != w).nonzero()[0])
+            raise AssertionError(f"{what} {k}: first difference at {idx}: "
+                                 f"{g[idx].item()} != {w[idx].item()}")
+
+
+def _encode_wall(fn, frames_t: int):
+    """fn() -> (state, outputs); returns (seconds per frame up to the read
+    of the bit total, state, outputs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = fn()
+    int(out["total_bits"].sum())                      # waits for the device
+    return (time.perf_counter() - t0) / frames_t, state, out
+
+
+def _replays_traced(prof, name: str) -> list:
+    """Per cudaGraphLaunch of a torch.profiler run, in launch order: (CUDA
+    kernels traced, kernels traced whose name holds `name`).  Each kernel a
+    replay runs carries its launch's correlation id."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    launches = sorted(e.correlation_id() for e in events
+                      if "cudaGraphLaunch" in e.name())
+    kernels, named = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            kernels[e.correlation_id()] += 1
+            named[e.correlation_id()] += name in e.name()
+    return [(kernels[c], named[c]) for c in launches]
+
+
+def profile_worker(spec: dict) -> int:
+    """The profiler count of phase 20, in a process of its own: for each
+    configuration of spec, build the program of the headline content, then
+    encode it again under torch.profiler.  A trace is whole when it holds
+    every replay's launch and the same number of kernels in each (the
+    replays run one graph); a trace that is not is kept as lossy, and the
+    program is rebuilt and profiled again, at most PROFILE_ATTEMPTS times.
+    Prints one JSON line: per configuration, the whole trace's (kernels,
+    SAD-search kernels) per replay or null, LAUNCHES over it, the lossy
+    traces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.core import graphs
+    from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.tools import bench
+
+    if not torch.cuda.is_available():
+        print("profile worker: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    out = {}
+    for config in spec["configs"]:
+        cfg = bench.encoder_config(config, HEADLINE_QUANT)
+        frames = {k: torch.as_tensor(v, device=dev) for k, v in
+                  bench.make_content(cfg.fmt, HEADLINE_STREAMS,
+                                     HEADLINE_FRAMES).items()}
+        got = out[config] = {"replays": None, "launches": None, "lossy": []}
+        for _ in range(PROFILE_ATTEMPTS):
+            graphs.PROGRAMS.clear()
+            enc.encode_sequence(cfg, frames, device=dev)        # built
+            torch.cuda.synchronize()
+            me_cuda.LAUNCHES = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                enc.encode_sequence(cfg, frames, device=dev)
+                torch.cuda.synchronize()
+            replays = _replays_traced(prof, "sad_search_kernel")
+            kernels = collections.Counter(k for k, _ in replays)
+            if len(replays) == HEADLINE_FRAMES and len(kernels) == 1:
+                got.update(replays=replays, launches=me_cuda.LAUNCHES)
+                break
+            most = max(kernels, default=0)
+            got["lossy"].append({
+                "launches": len(replays), "kernels": dict(kernels),
+                "short": [(i, k) for i, (k, _) in enumerate(replays)
+                          if k != most][:8]})
+        del frames
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+#: a worker mode of this script -> its function
+WORKERS = {"--multihost-worker": multihost_worker,
+           "--profile-worker": profile_worker}
+
+
+def graphs_phase(dev, mix, card: str) -> int:
+    """Phase 20: the captured programs (core.graphs) against the eager
+    loops on the card.  Returns the SAD-search launches of the profiled
+    replayed cif encode."""
+    import torch
+
+    from p64tpu_torch.core import decoder
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.core import graphs
+    from p64tpu_torch.tools import bench, capture_probe
+    from p64tpu_torch.utils import fan_map
+
+    cfgs = {}
+    for config in bench.ENCODE_CONFIGS:
+        cfg = cfgs[config] = bench.encoder_config(config, HEADLINE_QUANT)
+        for streams in GRAPH_STREAMS:
+            frames = {k: torch.as_tensor(v, device=dev) for k, v in
+                      bench.make_content(cfg.fmt, streams,
+                                         HEADLINE_FRAMES).items()}
+            graphs.PROGRAMS.clear()
+            torch.cuda.empty_cache()
+            walls = {"eager": [], "graph": []}
+            for way in ("eager", "graph", "graph", "eager"):
+                fn = (enc.encode_sequence if way == "graph"
+                      else enc.encode_sequence_eager)
+                wall, state, out = _encode_wall(
+                    lambda: fn(cfg, frames, device=dev), HEADLINE_FRAMES)
+                walls[way].append(wall)
+                if way == "graph":
+                    g_state, g_out = state, out
+                else:
+                    e_state, e_out = state, out
+            _equal_or_raise(f"graph vs eager {config} {streams} streams, "
+                            "output", g_out, e_out)
+            _equal_or_raise(f"graph vs eager {config} {streams} streams, "
+                            "final state", g_state, e_state)
+            bits = int(g_out["total_bits"].sum())
+            if (config == "cif" and streams == HEADLINE_STREAMS
+                    and bits != HEADLINE_BITS):
+                raise AssertionError(f"graph cif: {bits} bits != "
+                                     f"{HEADLINE_BITS}")
+            ((_, prog),) = graphs.PROGRAMS.items()
+            cap = prog.captured
+            log(f"[graphs] {config} {streams}x{HEADLINE_FRAMES}: graph == "
+                f"eager in every output and the final state, {bits} bits; "
+                f"warm-up {cap.warmup_s:.3f} s, capture {cap.capture_s:.3f} "
+                f"s, pool {cap.pool_bytes / 2 ** 20:.1f} MB, "
+                f"{cap.launches} SAD-search launches per replay; wall per "
+                f"frame graph {min(walls['graph']) * 1e3:.3f} ms (of "
+                + ", ".join(f"{w * 1e3:.3f}" for w in walls["graph"])
+                + f"), eager {min(walls['eager']) * 1e3:.3f} ms (of "
+                + ", ".join(f"{w * 1e3:.3f}" for w in walls["eager"])
+                + f") on {card}")
+            del frames, g_state, g_out, e_state, e_out
+
+    # decode: phase 10's mix, graph against eager
+    parsed = fan_map(decoder.parse_to_tensors, mix)
+    fmt = parsed[0][0]
+    batch = decoder.stack_seqs(fmt, [seq for _, _, seq in parsed], dev)
+    got = decoder.reconstruct_seq(fmt, batch)
+    want = decoder.reconstruct_seq_eager(fmt, batch)
+    keys = ("y", "cb", "cr")
+    _equal_or_raise("decode graph vs eager", dict(zip(keys, got)),
+                    dict(zip(keys, want)))
+    log(f"[graphs] decode {len(mix)}x{batch['levels8'].shape[0]} of phase "
+        f"10's mix: reconstruct_seq (replayed) == reconstruct_seq_eager")
+    del batch, got, want
+
+    # the SAD-search kernel really runs under replay: counted in a process
+    # of its own, whose profiler no earlier phase has used
+    graphs.PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    (traces,) = run_workers([{"configs": list(PROFILED)}], "profile")
+    counted = {}
+    for config, per_replay in PROFILED.items():
+        got = traces[config]
+        for i, lost in enumerate(got["lossy"], 1):
+            log(f"[graphs] profiled replayed {config}, trace {i}: lost "
+                f"records ({lost['launches']} graph launches of "
+                f"{HEADLINE_FRAMES}, kernels per launch {lost['kernels']}, "
+                f"short launches (index, kernels) {lost['short']}); "
+                "rebuilt and profiled again")
+        replays = got["replays"]
+        if replays is None:
+            raise AssertionError(f"replayed {config}: none of "
+                                 f"{PROFILE_ATTEMPTS} traces held every "
+                                 "kernel of every replay")
+        n = sum(k for _, k in replays)
+        if ({k for _, k in replays} != {per_replay}
+                or got["launches"] != n):
+            raise AssertionError(
+                f"replayed {config}: the profiler counted sad_search_kernel "
+                f"executions per replay {[k for _, k in replays]}, LAUNCHES "
+                f"{got['launches']}, expected {per_replay} per replay")
+        counted[config] = n
+        log(f"[graphs] replayed {config} {HEADLINE_STREAMS}x"
+            f"{HEADLINE_FRAMES}: torch.profiler counts {n} sad_search_kernel "
+            f"executions, {per_replay} in each of the {len(replays)} "
+            f"replays of {replays[0][0]} kernels, == LAUNCHES "
+            f"{got['launches']} (trace {len(got['lossy']) + 1} of at most "
+            f"{PROFILE_ATTEMPTS})")
+
+    # no host sync in one eager frame step of each configuration, or in
+    # one reconstruct step
+    for config, cfg in cfgs.items():
+        s = HEADLINE_STREAMS
+        fr = {k: torch.as_tensor(v[:, 0], device=dev).contiguous()
+              for k, v in bench.make_content(cfg.fmt, s, 1).items()}
+        state = enc.init_state(cfg, s, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            enc.encode_frame_step(cfg, state, fr["y"], fr["cb"], fr["cr"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    batch = decoder.stack_seqs(fmt, [seq for _, _, seq in parsed], dev)
+    planes = dict(zip(("y", "cb", "cr"),
+                      decoder._init_planes(fmt, batch, None)))
+    frame = {k: batch[k][0] for k in decoder.SEQ_KEYS}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decoder._reconstruct_step(fmt, planes, frame)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[graphs] torch.cuda.set_sync_debug_mode('error') held around one "
+        f"eager frame step of {', '.join(cfgs)} and one reconstruct step: "
+        "no host sync")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = capture_probe.main(list(PROBE_VARIANTS))
+    if rc != 0:
+        raise AssertionError(f"capture_probe exit {rc}")
+    for line in buf.getvalue().splitlines():
+        log(f"[graphs] capture_probe: {line}")
+    return counted["cif"]
+
+
 def main() -> int:
     import torch
-    if len(sys.argv) == 3 and sys.argv[1] == "--multihost-worker":
+    if len(sys.argv) == 3 and sys.argv[1] in WORKERS:
         if not os.path.isdir(os.path.join(HERE, "p64tpu_torch")):
             return 1
         sys.path.insert(0, HERE)
-        return multihost_worker(json.loads(sys.argv[2]))
+        return WORKERS[sys.argv[1]](json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- this "
               "smoke run needs a CUDA card", file=sys.stderr)
@@ -1230,12 +1514,14 @@ def main() -> int:
 
     import numpy as np
 
+    from p64tpu_torch.core import graphs
     from p64tpu_torch.kernels import me, me_cuda, me_variants_cuda
     from p64tpu_torch.spec.constants import CIF
     from p64tpu_torch.tools.bench import make_content, make_decode_content
     from p64tpu_torch.tools.parity import sad_oracle
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. device
     card = card_line()
@@ -1276,8 +1562,14 @@ def main() -> int:
             f"s={SEARCH}: map == plain == int64 oracle, fused mv/best/sad0 "
             f"== plain full search ({n_ties} MBs with tied minima)")
 
-    # 4. pins
+    # 4. pins, through the captured frame steps
+    builds = graphs.PROGRAMS.builds
     pins = check_pins(dev)
+    pin_builds = graphs.PROGRAMS.builds - builds
+    if pin_builds < 1:
+        raise AssertionError("the pins' encodes captured no program")
+    log(f"[pins] the {len(pins)} pins (3 MQUANT segments, skipped frames "
+        f"among them) went through {pin_builds} captured programs")
 
     # 5. the parity gate, with its kernels' launches counted
     map_launches = gate()
@@ -1371,6 +1663,11 @@ def main() -> int:
     # 19. the encoder config fuzz and the decode differential fuzz
     fuzz = fuzz_phase(dev, card)
     by_path["fuzz"] = fuzz["sad_search"]
+
+    # 20. the captured programs against the eager loops
+    by_path["graphs"] = graphs_phase(dev, mix, card)
+    log(f"[done] all 20 phases passed in {time.perf_counter() - t_start:.1f}"
+        " s")
 
     log(card)
     kernels = [{

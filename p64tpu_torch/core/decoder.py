@@ -9,13 +9,16 @@ output are identical by construction.
 
 Batch-first, like the rest of the port: `decode_seq_batch` stacks S
 equal-length parsed streams on the host, copies them to the device once,
-and runs a host loop over the T frames (the reference's `lax.scan` under
-`vmap`) that carries the (S, H, W) planes.  The planes stay on the device
-until one copy back at the end.
+and runs the T frames (the reference's `lax.scan` under `vmap`) carrying
+the (S, H, W) planes: on a CUDA device as one captured reconstruct step
+replayed per frame (core.graphs, the counterpart of the reference's
+jitted `_decode_scan`), on the CPU as a host loop.  The planes stay on the
+device until one copy back at the end.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +28,7 @@ from ..spec.constants import MB_SIZE, Format
 from ..entropy.parse import ParsedFrame
 from ..native import load
 from ..utils import fan_map
+from . import graphs
 from .reconstruct import reconstruct_frame
 
 #: keys of a parsed sequence dict (parse_to_tensors, frames_to_tensors)
@@ -79,6 +83,32 @@ def stack_seqs(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
     return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
 
 
+def _init_planes(fmt: Format, batch: Mapping[str, torch.Tensor],
+                 init: Optional[Tuple[torch.Tensor, ...]]):
+    s, dev = batch["levels8"].shape[1], batch["levels8"].device
+    if init is not None:
+        return tuple(init)
+    luma, chroma = (fmt.height, fmt.width), (fmt.chroma_height,
+                                             fmt.chroma_width)
+    return tuple(torch.zeros((s, *hw), dtype=torch.uint8, device=dev)
+                 for hw in (luma, chroma, chroma))
+
+
+def _reconstruct_step(fmt: Format, planes: Mapping[str, torch.Tensor],
+                      fr: Mapping[str, torch.Tensor]):
+    """One frame of every stream: (new planes, the same planes as output).
+    Levels travel at half width: int8 zigzag levels plus a uint8 intra-DC
+    sidecar; slot 0 of an intra block is 0 in levels8 and the sidecar is 0
+    everywhere else, so one add reassembles them."""
+    levels = fr["levels8"].to(torch.int32)
+    levels[..., 0] += fr["dc"].to(torch.int32)
+    y, cb, cr = reconstruct_frame(
+        fmt, levels, fr["quant"], fr["intra"], fr["mv"], fr["fil"],
+        planes["y"], planes["cb"], planes["cr"])
+    new = dict(y=y, cb=cb, cr=cr)
+    return new, new
+
+
 def reconstruct_seq(fmt: Format, batch: Mapping[str, torch.Tensor],
                     init: Optional[Tuple[torch.Tensor, ...]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -86,28 +116,51 @@ def reconstruct_seq(fmt: Format, batch: Mapping[str, torch.Tensor],
 
     init: (y, cb, cr) reference planes (S, H, W) / (S, H/2, W/2) uint8 on
     the batch's device, zeros when None.  Returns (y, cb, cr) uint8
-    (S, T, ...) tensors on the device."""
+    (S, T, ...) tensors on the device.  On a CUDA device the reconstruct
+    step is a captured graph, replayed per frame (reconstruct_seq_graphed);
+    on the CPU, reconstruct_seq_eager."""
+    if batch["levels8"].is_cuda:
+        return reconstruct_seq_graphed(fmt, batch, init)
+    return reconstruct_seq_eager(fmt, batch, init)
+
+
+def reconstruct_seq_graphed(fmt: Format, batch: Mapping[str, torch.Tensor],
+                            init: Optional[Tuple[torch.Tensor, ...]] = None,
+                            cache: graphs.ProgramCache = graphs.PROGRAMS
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """reconstruct_seq through `core.graphs`: one program per (fmt, S,
+    device), replayed once per frame.  On the CPU the program runs with
+    capture off (the tests hold that bookkeeping to
+    reconstruct_seq_eager)."""
+    s, dev = batch["levels8"].shape[1], batch["levels8"].device
+    y, cb, cr = _init_planes(fmt, batch, init)
+    _, out = graphs.run(("decode", fmt, s, dev),
+                        functools.partial(_reconstruct_step, fmt),
+                        dict(y=y, cb=cb, cr=cr),
+                        {k: batch[k] for k in SEQ_KEYS}, axis=0,
+                        cache=cache)
+    return out["y"], out["cb"], out["cr"]
+
+
+def reconstruct_seq_eager(fmt: Format, batch: Mapping[str, torch.Tensor],
+                          init: Optional[Tuple[torch.Tensor, ...]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """reconstruct_seq as a host loop that launches every frame's
+    operations from Python: the plain version the graphs are held to."""
     t, s = batch["levels8"].shape[:2]
     dev = batch["levels8"].device
     luma, chroma = (fmt.height, fmt.width), (fmt.chroma_height,
                                              fmt.chroma_width)
-    if init is None:
-        init = tuple(torch.zeros((s, *hw), dtype=torch.uint8, device=dev)
-                     for hw in (luma, chroma, chroma))
-    y, cb, cr = init
+    planes = dict(zip(("y", "cb", "cr"), _init_planes(fmt, batch, init)))
     out = tuple(torch.empty((s, t, *hw), dtype=torch.uint8, device=dev)
                 for hw in (luma, chroma, chroma))
     for i in range(t):
-        # levels travel at half width: int8 zigzag levels plus a uint8
-        # intra-DC sidecar; slot 0 of an intra block is 0 in levels8 and
-        # the sidecar is 0 everywhere else, so one add reassembles them
-        levels = batch["levels8"][i].to(torch.int32)
-        levels[..., 0] += batch["dc"][i].to(torch.int32)
-        y, cb, cr = reconstruct_frame(
-            fmt, levels, batch["quant"][i], batch["intra"][i],
-            batch["mv"][i], batch["fil"][i], y, cb, cr)
-        for o, p in zip(out, (y, cb, cr)):
-            o[:, i] = p
+        planes, _ = _reconstruct_step(fmt, planes,
+                                      {k: batch[k][i] for k in SEQ_KEYS})
+        for o, k in zip(out, ("y", "cb", "cr")):
+            o[:, i] = planes[k]
     return out
 
 

@@ -20,16 +20,20 @@ skips the input frame.  The reference's `lax.cond` is a per-stream select
 under `vmap`, and so it is here: the picture is encoded for every stream,
 and a skipped stream takes the skip picture's state and outputs instead.
 
-The frame loop is a host `for` loop carrying the state (the reference's
-`lax.scan`); the stream axis is explicit (the reference's `vmap`).  The
-host then serializes the streams through the C++ engine, one thread per
-stream (entropy.encode, utils.fan_map), and asserts that each emitted
-exactly the device's bit count.
+The stream axis is explicit (the reference's `vmap`).  The frame loop
+carries the state (the reference's `lax.scan`): on a CUDA device one frame
+step is captured as a CUDA graph and replayed per frame (core.graphs, the
+counterpart of the reference's `encode_sequence_jit`); on the CPU it is a
+host `for` loop, `encode_sequence_eager`.  The host then serializes the
+streams through the C++ engine, one thread per stream (entropy.encode,
+utils.fan_map), and asserts that each emitted exactly the device's bit
+count.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -61,6 +65,7 @@ from ..kernels.me import full_search
 from ..kernels.quant import quantize_zz
 from ..native import load
 from ..utils import device_const, fan_map
+from . import graphs
 from .blocks import (
     assemble_blocks,
     assemble_mb_blocks,
@@ -530,7 +535,41 @@ def encode_sequence(cfg: EncoderConfig, frames: Mapping[str, object],
 
     frames: y (S, T, H, W), cb/cr (S, T, H/2, W/2) uint8 (numpy or torch).
     Returns (final_state, outputs) with outputs stacked as (S, T, ...).
+    On a CUDA device the frame step is a captured graph, replayed per frame
+    (encode_sequence_graphed); on the CPU, encode_sequence_eager.
     """
+    if torch.device(device).type == "cuda":
+        return encode_sequence_graphed(cfg, frames, state, device=device)
+    return encode_sequence_eager(cfg, frames, state, device=device)
+
+
+def _graph_step(cfg: EncoderConfig, state: State,
+                frame: Mapping[str, torch.Tensor]):
+    return encode_frame_step(cfg, state, frame["y"], frame["cb"], frame["cr"])
+
+
+def encode_sequence_graphed(cfg: EncoderConfig, frames: Mapping[str, object],
+                            state: Optional[State] = None, *,
+                            device: torch.device | str,
+                            cache: graphs.ProgramCache = graphs.PROGRAMS):
+    """encode_sequence through `core.graphs`: one program per (cfg, S,
+    device), built on the first call, replayed once per frame.  On the CPU
+    the program runs with capture off (the tests hold that bookkeeping to
+    encode_sequence_eager)."""
+    fr = _frames_on(frames, device)
+    s = fr["y"].shape[0]
+    if state is None:
+        state = init_state(cfg, s, device)
+    return graphs.run(("encode", cfg, s, fr["y"].device),
+                      functools.partial(_graph_step, cfg), state, fr, axis=1,
+                      cache=cache)
+
+
+def encode_sequence_eager(cfg: EncoderConfig, frames: Mapping[str, object],
+                          state: Optional[State] = None, *,
+                          device: torch.device | str):
+    """encode_sequence as a host loop that launches every frame step's
+    operations from Python: the plain version the graphs are held to."""
     fr = _frames_on(frames, device)
     s, t = fr["y"].shape[:2]
     if state is None:

@@ -20,13 +20,12 @@ The port keeps the reference's contract, not its machinery:
   * serialization is host work per stream, in global stream order.
 
 JAX caches compiled executables per (config, mesh) so that each chunk does
-not re-trace; torch runs eagerly and has nothing to cache, so the port has
-no encoder cache.
+not re-trace.  The port's counterpart is `core.graphs`' program cache: on a
+card every shard's `encode_sequence` replays one captured frame step per
+(config, streams, device), built once under that device.
 
-The host launches each shard's frame loop in turn.  The frame loop is
-bound by host launch time (PERF.md section 5), so several cards behind one
-process do not run in parallel; one process per card
-(`distrib.multihost`) is the scale-out across cards.
+The host queues each shard's frame loop in turn, a few launches per frame;
+`distrib.multihost` runs one process per card.
 """
 
 from __future__ import annotations

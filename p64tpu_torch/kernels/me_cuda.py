@@ -28,7 +28,9 @@ from ..spec.constants import DEFAULT_SEARCH_RANGE, MB_SIZE
 from . import _build
 
 #: kernel launches since the count was last reset (a run that claims to
-#: have gone through the kernel shows it here)
+#: have gone through the kernel shows it here): each host launch adds one,
+#: and each replay of a captured graph (core.graphs) the launches its
+#: capture recorded
 LAUNCHES = 0
 
 #: the library's SAD-map kernels (entry points p64_<name>)

@@ -102,9 +102,12 @@ def encode_resilient(
     (core.encoder.outputs_to_host), the next chunk is dispatched before
     the host waits on the first chunk's event and serializes it.  Whether
     the device then works while the host serializes depends on the device
-    being behind the host: the frame loop is bound by host launch time
-    (PERF.md section 5), so the overlap may be small.  chunk == 0 keeps
-    the single-dispatch behavior.
+    being behind the host: on a card each frame is one replay of a
+    captured frame step (core.graphs), so queuing a chunk costs the host
+    little.  Both chunks in flight replay the same program; every copy
+    into and out of its static buffers is queued on the one stream, so
+    they cannot overwrite each other.  chunk == 0 keeps the
+    single-dispatch behavior.
 
     Fault attribution under pipelining: CUDA reports a kernel's fault
     asynchronously, at the next call that synchronizes (an event wait, a

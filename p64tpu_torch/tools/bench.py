@@ -134,6 +134,20 @@ def make_content(fmt: Format, streams: int, frames_t: int,
                 cr=(255 - ys[:, :, 1::2, ::2] // 2).astype(np.uint8))
 
 
+def encoder_config(config: str, quant: int = 10,
+                   emit_recon: bool = True) -> enc.EncoderConfig:
+    """The EncoderConfig of an encode configuration (see `measure`)."""
+    if config not in ENCODE_CONFIGS:
+        raise ValueError(f"unknown encode configuration {config!r}; "
+                         f"expected one of {ENCODE_CONFIGS}")
+    rate = (RateConfig(bit_rate=1024000) if config == "cif_rc"
+            else RateConfig(fixed_quant=quant))
+    return enc.EncoderConfig(fmt=QCIF if config == "qcif" else CIF,
+                             search=SEARCH, rate=rate,
+                             intra_only=config == "cif_intra",
+                             emit_recon=emit_recon)
+
+
 def measure(config: str = "cif", streams: int = 16, frames_t: int = 32,
             reps: int = 3, quant: int = 10, emit_recon: bool = True, *,
             device: torch.device | str) -> dict:
@@ -144,25 +158,20 @@ def measure(config: str = "cif", streams: int = 16, frames_t: int = 32,
       qcif      -- QCIF, search 15, fixed quantizer
 
     The frames and the initial state are staged on the device first.  One
-    warm-up run follows, its seconds reported as `compile_s`: the port has
-    no JIT, so on a card this is the kernel library's load, the caching
-    allocator's growth and the first launches.  Then `reps` runs, each
-    timed on the host clock up to the device-to-host read of the bit total
-    (which waits for the device); the best counts.  reps=0 returns the
-    warm-up's bits with ms = inf and mbs = 0.
+    warm-up run follows, its seconds reported as `compile_s`: on a card it
+    builds the frame step's captured program (core.graphs: an eager
+    warm-up step, the capture) and replays it for every frame, so
+    `compile_s` means what the reference's "compile+first run" means.
+    Then `reps` runs, each replaying the program once per frame, timed on
+    the host clock up to the device-to-host read of the bit total (which
+    waits for the device); the best counts.  reps=0 returns the warm-up's
+    bits with ms = inf and mbs = 0.
 
     Returns dict(config, streams, mbs, bits, ms, compile_s, rep_ms,
     stream0_frame_bits (stream 0's bits per frame, read after the clock
     stopped), device (the device's name))."""
-    if config not in ENCODE_CONFIGS:
-        raise ValueError(f"unknown encode configuration {config!r}; "
-                         f"expected one of {ENCODE_CONFIGS}")
-    fmt = QCIF if config == "qcif" else CIF
-    rate = (RateConfig(bit_rate=1024000) if config == "cif_rc"
-            else RateConfig(fixed_quant=quant))
-    cfg = enc.EncoderConfig(fmt=fmt, search=SEARCH, rate=rate,
-                            intra_only=config == "cif_intra",
-                            emit_recon=emit_recon)
+    cfg = encoder_config(config, quant, emit_recon)
+    fmt = cfg.fmt
     dev = torch.device(device)
     name = device_name(dev)
     log(f"device={name} config={config} streams={streams} "

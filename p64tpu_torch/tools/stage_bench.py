@@ -20,18 +20,22 @@ stays inside the picture (the ME window clip guarantees that on the
 encoder's path), since the port's gather refuses an out-of-picture index
 where the reference's zero-padded select reads zeros.
 
-Eager torch has no `fori_loop` to fold launches into, so each stage is
-timed three ways on a card, each the best of 2 loops, per iteration:
-  device -- CUDA events around the loop: the span of the device timeline
-            the loop occupies, idle gaps between launches included;
-  busy   -- the sum of the loop's kernel durations (torch.profiler), one
-            more loop: what the device itself spends;
-  wall   -- the host clock around the loop, ending in
-            torch.cuda.synchronize().
-wall - busy is what the host's launches add.  Output (stderr): per stage
-those three numbers and the checksum's low 16 bits, as the reference logs
-it.  Needs a card; exits 2 without one.  The tests call `run_stages` on
-the CPU, where only wall time and the checksum exist.
+The reference jits each stage's whole loop (`jax.jit(lambda: loop(fn,
+x0))`), so its CUDA-events span is device time.  Here the whole loop is
+captured as one CUDA graph (`core.graphs.capture`) and replayed, which is
+the same thing on a card.  Each stage is timed three ways, each the best
+of 2 loops, per iteration:
+  device -- CUDA events around one replay of the captured loop: the
+            device's own time, with no host launch in it;
+  busy   -- the sum of the kernel durations (torch.profiler) of one more
+            loop, run eagerly;
+  wall   -- the host clock around the loop run eagerly, ending in
+            torch.cuda.synchronize(): what the launches from Python cost.
+wall - device is what eager launching adds.  The replay's checksum must
+equal the eager loop's.  Output (stderr): per stage those three numbers
+and the checksum's low 16 bits, as the reference logs it.  Needs a card;
+exits 2 without one.  The tests call `run_stages` on the CPU, where only
+the eager wall time and the checksum exist.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 from ..control.decisions import DecisionConfig, decide_modes
 from ..control.ratecontrol import RateConfig
 from ..core import encoder as enc
+from ..core import graphs
 from ..core.blocks import luma_to_mbs, to_gob_order
 from ..core.predict import mc_predict
 from ..core.reconstruct import reconstruct_frame
@@ -68,9 +73,10 @@ Stage = Tuple[Callable[[torch.Tensor], torch.Tensor], torch.Tensor]
 
 
 class StageTime(NamedTuple):
-    """Per-iteration times of one stage in milliseconds (device and busy
-    are None off a card) and the loop's checksum as a signed int32, the
-    reference's accumulator."""
+    """Per-iteration times of one stage in milliseconds -- device (the
+    captured loop's replay), wall and busy (the loop run eagerly); device
+    and busy are None off a card -- and the loop's checksum as a signed
+    int32, the reference's accumulator."""
     device_ms: Optional[float]
     wall_ms: float
     checksum: int
@@ -229,6 +235,30 @@ def _busy_ms(stage: Stage, iters: int) -> Optional[float]:
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
+def _graph_ms(stage: Stage, iters: int, checksum: int,
+              dev: torch.device) -> float:
+    """Capture the whole loop as one CUDA graph and replay it: the best of
+    ROUNDS replays' CUDA-events span, per iteration.  Raises if a replay's
+    checksum differs from the eager loop's `checksum`."""
+    captured = graphs.capture(lambda: loop(stage, iters),
+                              lambda: loop(stage, iters), dev)
+    best = float("inf")
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        captured.replay()
+        end.record()
+        torch.cuda.synchronize(dev)
+        best = min(best, start.elapsed_time(end))
+        got = int(captured.result)
+        if got != checksum:
+            raise AssertionError(f"the captured loop's checksum {got} != "
+                                 f"the eager loop's {checksum}")
+    return best / iters
+
+
 def run_stages(names: Sequence[str], streams: int, iters: int, *,
                device: torch.device | str) -> Dict[str, StageTime]:
     """Time each named stage at `streams` CIF streams on `device` (see the
@@ -246,24 +276,15 @@ def run_stages(names: Sequence[str], streams: int, iters: int, *,
         t0 = time.perf_counter()
         r = int(loop(stage, iters))
         log(f"{name}: first run {time.perf_counter() - t0:.1f}s")
-        dev_best = wall_best = float("inf")
+        wall_best = float("inf")
         for _ in range(ROUNDS):
             if on_card:
                 torch.cuda.synchronize(dev)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
             t0 = time.perf_counter()
-            acc = loop(stage, iters)
-            if on_card:
-                end.record()
-            r = int(acc)                               # waits for the device
-            if on_card:
-                torch.cuda.synchronize(dev)
-                dev_best = min(dev_best, start.elapsed_time(end))
+            r = int(loop(stage, iters))                # waits for the device
             wall_best = min(wall_best, (time.perf_counter() - t0) * 1e3)
         res = StageTime(
-            device_ms=dev_best / iters if on_card else None,
+            device_ms=_graph_ms(stage, iters, r, dev) if on_card else None,
             wall_ms=wall_best / iters, checksum=wrap32(r),
             busy_ms=_busy_ms(stage, iters) if on_card else None)
         out[name] = res
@@ -291,7 +312,8 @@ def main(argv=None) -> int:
     results = run_stages(argv or STAGES, streams, iters,
                          device=torch.device("cuda", 0))
     log(f"---- summary (ms per frame-step equivalent, {streams} CIF "
-        "streams; device span, kernel busy, host wall) ----")
+        "streams; captured device span, eager kernel busy, eager host "
+        "wall) ----")
     for k, v in results.items():
         log(f"{k:22s} {_ms(v.device_ms):>8s} {_ms(v.busy_ms):>8s} "
             f"{_ms(v.wall_ms):>8s}")

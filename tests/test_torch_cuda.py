@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain torch versions, on the card: the
-SAD-search kernel and the four SAD-map kernels; the decoder on the card
-against its CPU decode and the encoder's reconstruction; the batch
-encoder, the stream mesh, checkpoints, the profiler and the encoder fuzz
-on the card.
+SAD-search kernel and the four SAD-map kernels; the captured frame step
+(core.graphs) against the eager loop; the decoder on the card against its
+CPU decode and the encoder's reconstruction; the batch encoder, the stream
+mesh, checkpoints, the profiler and the encoder fuzz on the card.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they also run on a GPU host without it:
@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from p64tpu_torch.core import decoder, encoder
+from p64tpu_torch.core import decoder, encoder, graphs
 from p64tpu_torch.kernels import me, me_cuda, me_variants, me_variants_cuda
 from p64tpu_torch.spec.constants import CIF, QCIF
 from p64tpu_torch.tools import golden_content as gc
@@ -301,3 +301,84 @@ def test_encoder_fuzz_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch,
     assert out.startswith("encoder config fuzz: 4 configs, all contracts "
                           "held")
     assert not list(tmp_path.iterdir())
+
+
+#: the graph tests' rate settings: fixed quantizer, and rate control with
+#: MQUANT segments (the host loop over GOBs, captured)
+GRAPH_RATES = {"q10": dict(fixed_quant=10),
+               "rc_mquant3": dict(bit_rate=2_000_000, mquant_segments=3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", sorted(GRAPH_RATES))
+@pytest.mark.parametrize("streams", [1, 16])
+@pytest.mark.parametrize("search", [0, 2, 15])
+def test_replayed_encode_equals_eager(cuda, search, streams, rate):
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.tools.bench import make_content
+
+    cfg = encoder.EncoderConfig(fmt=CIF, search=search,
+                                rate=RateConfig(**GRAPH_RATES[rate]))
+    t = 3
+    frames = {k: torch.as_tensor(v, device=cuda)
+              for k, v in make_content(CIF, streams, t).items()}
+    cache = graphs.ProgramCache()
+    want_state, want = encoder.encode_sequence_eager(cfg, frames,
+                                                     device=cuda)
+    for _ in range(2):            # the build and a cache hit
+        before = me_cuda.LAUNCHES
+        state, got = encoder.encode_sequence_graphed(cfg, frames,
+                                                     device=cuda, cache=cache)
+        torch.cuda.synchronize()
+        assert me_cuda.LAUNCHES - before == t
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        for k in want_state:
+            assert torch.equal(state[k], want_state[k]), k
+    assert cache.builds == 1 and len(cache) == 1
+    ((_, prog),) = cache.items()
+    assert prog.captured.launches == 1
+
+
+@pytest.mark.cuda
+def test_a_step_that_syncs_raises_at_capture(cuda, monkeypatch):
+    from p64tpu_torch.control.ratecontrol import RateConfig
+
+    cfg = encoder.EncoderConfig(fmt=QCIF, search=3,
+                                rate=RateConfig(fixed_quant=10))
+    frames = _qcif_batch(2, 2)
+    real = encoder.encode_frame_step
+
+    def syncing(cfg_, state, *planes):
+        state["buffer"].sum().item()              # a host sync
+        return real(cfg_, state, *planes)
+
+    cache = graphs.ProgramCache()
+    monkeypatch.setattr(encoder, "encode_frame_step", syncing)
+    with pytest.raises(RuntimeError):
+        encoder.encode_sequence_graphed(cfg, frames, device=cuda,
+                                        cache=cache)
+    assert len(cache) == 0 and cache.builds == 0
+    monkeypatch.undo()
+    # nothing half-captured stays: the next call builds and is right
+    _, got = encoder.encode_sequence_graphed(cfg, frames, device=cuda,
+                                             cache=cache)
+    _, want = encoder.encode_sequence_eager(cfg, frames, device=cuda)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_replayed_reconstruct_equals_eager(cuda):
+    from p64tpu_torch.control.ratecontrol import RateConfig
+
+    cfg = encoder.EncoderConfig(fmt=QCIF, search=15,
+                                rate=RateConfig(bit_rate=192_000))
+    datas, _, _ = encoder.encode_to_bytes(cfg, _qcif_batch(3, 4),
+                                          device="cpu")
+    batch = decoder.stack_seqs(
+        QCIF, [decoder.parse_to_tensors(d)[2] for d in datas], cuda)
+    got = decoder.reconstruct_seq(QCIF, batch)
+    for a, b in zip(got, decoder.reconstruct_seq_eager(QCIF, batch)):
+        assert torch.equal(a, b)
