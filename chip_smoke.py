@@ -123,6 +123,16 @@ run with a non-zero exit and no result line:
                  configuration and one reconstruct step under
                  torch.cuda.set_sync_debug_mode("error"); then
                  tools.capture_probe on base16 and s1
+ 21. dryrun   -- tools.dryrun: the compile check (entry(): one QCIF frame
+                 step at search 15 under rate control, built as one
+                 captured program in a cache of its own and replayed once)
+                 equal to the step on the CPU, with one SAD-search launch;
+                 then the production-shape dry run over 8 logical shards of
+                 the card, twice, and over 8 CPU shards: equal per-stream
+                 bytes and bit counts, the JAX package's 798,196 bits and
+                 8 frames coded, the SAD-search kernel launched on every
+                 frame of every shard, and one program built for the 8
+                 equal shard keys, kept for the second call
 
 From phase 4 on, every encode_sequence and reconstruct_seq on the card
 replays a captured program (core.graphs): the pins, the headline, the
@@ -192,6 +202,9 @@ PROFILE_ATTEMPTS = 5
 #: their seed (the reference tools' default seeds)
 FUZZ_SAMPLES, FUZZ_ENCODER_SEED = 40, 77
 FUZZ_STREAMS, FUZZ_DECODE_SEED = 400, 999
+#: the dry run's shards, and the JAX package's bit total and coded frames
+#: for them (its dry run over 8 devices)
+DRYRUN_SHARDS, DRYRUN_BITS, DRYRUN_CODED = 8, 798_196, 8
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -1495,6 +1508,99 @@ def graphs_phase(dev, mix, card: str) -> int:
     return counted["cif"]
 
 
+def _dryrun_logged(devices=None) -> tuple:
+    """tools.dryrun.dryrun_multichip over DRYRUN_SHARDS shards of `devices`
+    (default the card's logical shards), its line logged; returns (result,
+    wall seconds)."""
+    from p64tpu_torch.tools import dryrun
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = dryrun.dryrun_multichip(DRYRUN_SHARDS, devices)
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[dryrun] {line}")
+    return result, wall
+
+
+def dryrun_phase(dev, card: str) -> int:
+    """Phase 21: tools.dryrun's compile check and dry run on the card
+    against the CPU.  Returns the SAD-search launches of the first dry run
+    on the card."""
+    import torch
+
+    from p64tpu_torch.core import graphs
+    from p64tpu_torch.kernels import me_cuda
+    from p64tpu_torch.tools import dryrun
+
+    t_phase = time.perf_counter()
+    fn, args = dryrun.entry(dev)
+    n_programs = len(graphs.PROGRAMS)
+    me_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = dryrun.compile_check(fn, args)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    launches = me_cuda.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"compile check: {launches} SAD-search "
+                             "launches, expected 1 (one replay)")
+    if len(graphs.PROGRAMS) != n_programs:
+        raise AssertionError("compile check: the entry points' program "
+                             "cache changed")
+    cfn, cargs = dryrun.entry("cpu")
+    want = cfn(*cargs)
+    for what, g, w in zip(("new state", "outputs"), got, want):
+        _equal_or_raise(f"compile check {what}, card vs CPU",
+                        {k: v.cpu() for k, v in g.items()}, w)
+    log(f"[dryrun] compile check: entry() built as one captured program "
+        f"and replayed once in {check_s:.3f} s (build included), 1 "
+        "SAD-search launch; new state and outputs == the step on the CPU")
+
+    graphs.PROGRAMS.clear()
+    builds = graphs.PROGRAMS.builds
+    me_cuda.LAUNCHES = 0
+    on_card, card_s = _dryrun_logged()
+    by_path = me_cuda.LAUNCHES
+    built = graphs.PROGRAMS.builds - builds
+    again, again_s = _dryrun_logged()
+    rebuilt = graphs.PROGRAMS.builds - builds - built
+    cpu, cpu_s = _dryrun_logged(["cpu"] * DRYRUN_SHARDS)
+    if on_card["devices"] != (dev,) * DRYRUN_SHARDS:
+        raise AssertionError(f"dry run shards {on_card['devices']}, "
+                             f"expected {DRYRUN_SHARDS} x {dev}")
+    for what, run in (("card", on_card), ("card, second call", again)):
+        for key in ("streams", "total_bits", "frames_coded"):
+            if run[key] != cpu[key]:
+                raise AssertionError(f"dry run {what}: {key} differs from "
+                                     "the CPU's")
+    if (cpu["total_bits"], cpu["frames_coded"]) != (DRYRUN_BITS,
+                                                    DRYRUN_CODED):
+        raise AssertionError(f"dry run: {cpu['total_bits']} bits, "
+                             f"{cpu['frames_coded']} frames coded, expected "
+                             f"{DRYRUN_BITS}, {DRYRUN_CODED}")
+    frames = DRYRUN_SHARDS * dryrun.T
+    if by_path < frames:
+        raise AssertionError(f"dry run: {by_path} SAD-search launches, "
+                             f"expected one per frame of every shard, "
+                             f">= {frames}")
+    if (built, rebuilt) != (1, 0):
+        raise AssertionError(f"dry run: {built} programs built for "
+                             f"{DRYRUN_SHARDS} equal shard keys, "
+                             f"{rebuilt} more in the second call; expected "
+                             "1 and 0")
+    log(f"[dryrun] {DRYRUN_SHARDS} logical shards of {dev}: per-stream "
+        f"bytes and bit counts == {DRYRUN_SHARDS} CPU shards, "
+        f"{on_card['total_bits']} bits, {on_card['frames_coded']} frames "
+        f"coded; "
+        f"{by_path} SAD-search launches for {frames} shard-frames; 1 program "
+        f"built, none in the second call; wall {card_s:.3f} s (capture "
+        f"included), {again_s:.3f} s (replays only), CPU {cpu_s:.3f} s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return by_path
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] in WORKERS:
@@ -1666,7 +1772,10 @@ def main() -> int:
 
     # 20. the captured programs against the eager loops
     by_path["graphs"] = graphs_phase(dev, mix, card)
-    log(f"[done] all 20 phases passed in {time.perf_counter() - t_start:.1f}"
+
+    # 21. the compile check and the multi-device dry run
+    by_path["dryrun"] = dryrun_phase(dev, card)
+    log(f"[done] all 21 phases passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
     log(card)

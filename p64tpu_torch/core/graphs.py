@@ -27,8 +27,10 @@ step -- as a CUDA graph once and replays it once per frame:
     capture, which is an error;
   * programs are cached by key -- (config, streams, device) for the
     encoder, (format, streams, device) for the decoder -- at most
-    MAX_PROGRAMS at once, the least recently used released first: each
-    holds its graph's private memory pool, one step's intermediates.
+    MAX_PROGRAMS on each device, the least recently used on that device
+    released first: each holds its graph's private memory pool, one step's
+    intermediates, on its own device, so a program never evicts one on
+    another device (a mesh of many cards keeps one program per card).
 
 A failed warm-up, capture or replay raises and leaves nothing in the
 cache; nothing retries eagerly or moves to the CPU.
@@ -65,8 +67,8 @@ Tensors = Dict[str, torch.Tensor]
 #: with a leading stream axis
 Step = Callable[[Tensors, Tensors], Tuple[Tensors, Tensors]]
 
-#: programs kept at once (each holds a private pool; at 128 CIF streams one
-#: encoder step's intermediates take some GB)
+#: programs kept at once on each device (each holds a private pool there;
+#: at 128 CIF streams one encoder step's intermediates take some GB)
 MAX_PROGRAMS = 4
 
 
@@ -225,34 +227,40 @@ class Program:
 
 
 class ProgramCache:
-    """Programs by key, at most `size` of them, the least recently used
-    released first (with its graph and pool)."""
+    """Programs by key, at most `size` of them on each device, the least
+    recently used on that device released first (with its graph and pool).
+    A program on one device never evicts a program on another."""
 
     def __init__(self, size: int = MAX_PROGRAMS):
         self.size = size
         #: programs built (captured) so far
         self.builds = 0
-        self._programs: collections.OrderedDict[Hashable, Program] = (
-            collections.OrderedDict())
+        #: key -> (device, program), least recently used first
+        self._programs: collections.OrderedDict[
+            Hashable, Tuple[torch.device, Program]] = (
+                collections.OrderedDict())
 
     def __len__(self) -> int:
         return len(self._programs)
 
     def items(self) -> List[Tuple[Hashable, Program]]:
         """(key, program) pairs, least recently used first."""
-        return list(self._programs.items())
+        return [(k, p) for k, (_, p) in self._programs.items()]
 
-    def get(self, key: Hashable, build: Callable[[], Program]) -> Program:
-        """The program of `key`, built on a miss; a build that raises
-        leaves the cache without it."""
-        prog = self._programs.pop(key, None)
-        if prog is None:
-            while len(self._programs) >= self.size:
-                self._programs.popitem(last=False)
-            prog = build()
+    def get(self, key: Hashable, build: Callable[[], Program],
+            device: torch.device | str) -> Program:
+        """The program of `key` on `device`, built on a miss; a build that
+        raises leaves the cache without it."""
+        entry = self._programs.pop(key, None)
+        if entry is None:
+            device = torch.device(device)
+            held = [k for k, (d, _) in self._programs.items() if d == device]
+            for k in held[:max(0, len(held) - self.size + 1)]:
+                del self._programs[k]
+            entry = (device, build())
             self.builds += 1
-        self._programs[key] = prog
-        return prog
+        self._programs[key] = entry
+        return entry[1]
 
     def clear(self) -> None:
         self._programs.clear()
@@ -266,12 +274,14 @@ def run(key: Hashable, step: Step, state: Mapping[str, torch.Tensor],
         inputs: Mapping[str, torch.Tensor], *, axis: int,
         cache: ProgramCache = PROGRAMS) -> Tuple[Tensors, Tensors]:
     """Run `step` over every frame of `inputs` through the program of
-    `key` (built from `state` and frame 0 on a miss): the counterpart of a
-    jitted `lax.scan`.  `key` must name everything the step and the
-    buffers' shapes depend on.  Returns (final state, outputs (S, T, ...)).
+    `key` (built from `state` and frame 0 on a miss, and cached under the
+    device of `inputs`): the counterpart of a jitted `lax.scan`.  `key`
+    must name everything the step and the buffers' shapes depend on.
+    Returns (final state, outputs (S, T, ...)).
     """
     if next(iter(inputs.values())).shape[axis] == 0:
         raise ValueError("no frames")
-    prog = cache.get(key, lambda: Program(
-        step, state, {k: v.select(axis, 0) for k, v in inputs.items()}))
+    frame0 = {k: v.select(axis, 0) for k, v in inputs.items()}
+    prog = cache.get(key, lambda: Program(step, state, frame0),
+                     next(iter(frame0.values())).device)
     return prog.run(state, inputs, axis)

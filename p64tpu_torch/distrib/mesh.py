@@ -22,7 +22,10 @@ The port keeps the reference's contract, not its machinery:
 JAX caches compiled executables per (config, mesh) so that each chunk does
 not re-trace.  The port's counterpart is `core.graphs`' program cache: on a
 card every shard's `encode_sequence` replays one captured frame step per
-(config, streams, device), built once under that device.
+(config, streams, device), built once under that device.  The cache is
+bounded per device, so a mesh of any number of cards keeps every shard's
+program across calls; logical shards of one card with equal stream counts
+share one program.
 
 The host queues each shard's frame loop in turn, a few launches per frame;
 `distrib.multihost` runs one process per card.

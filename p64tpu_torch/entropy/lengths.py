@@ -17,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.blocks import to_gob_order
 from ..spec import luts
 from ..spec.constants import (
+    Format,
     GBSC_BITS,
     GN_BITS,
     GQUANT_BITS,
@@ -151,3 +153,37 @@ def gob_payload_bits(codedt: torch.Tensor, mtypet: torch.Tensor,
     """Exact MB-layer bits of GOBs (sum of gob_payload_bits_per_mb)."""
     return gob_payload_bits_per_mb(codedt, mtypet, mvt, cbpt, levelst).sum(
         dim=-1, dtype=torch.int32)
+
+
+def to_transmission(fmt: Format, coded: torch.Tensor, mtype: torch.Tensor,
+                    mv: torch.Tensor, cbp: torch.Tensor,
+                    levels: torch.Tensor):
+    """Raster-MB-order arrays -> (..., nGOB, 33, ...) transmission order
+    for the per-GOB bit model, a pure layout transform.
+
+    Shapes: coded/mtype/cbp (..., nMB); mv (..., nMB, 2); levels
+    (..., nMB, 6, 64), with the same leading axes (none for one picture).
+    """
+    lead = coded.shape[:-1]
+
+    def order(x: torch.Tensor) -> torch.Tensor:
+        tail = x.shape[len(lead) + 1:]
+        xt = to_gob_order(fmt, x.reshape(-1, fmt.num_mbs, *tail))
+        return xt.reshape(*lead, fmt.num_gobs, MBS_PER_GOB, *tail)
+
+    return tuple(order(x) for x in (coded, mtype, mv, cbp, levels))
+
+
+def frame_bits(fmt: Format, coded: torch.Tensor, mtype: torch.Tensor,
+               mv: torch.Tensor, cbp: torch.Tensor, levels: torch.Tensor):
+    """Exact bit cost of coded pictures from raster-MB-order inputs (shapes
+    as to_transmission's).
+
+    Returns (total_bits (...,), gob_bits (..., nGOB)), both int32:
+    gob_bits includes each GOB's header, total_bits the picture header too.
+    """
+    gob_bits = (gob_payload_bits(*to_transmission(fmt, coded, mtype, mv,
+                                                  cbp, levels))
+                + GOB_HEADER_BITS)
+    total = gob_bits.sum(dim=-1, dtype=torch.int32) + PICTURE_HEADER_BITS
+    return total.to(torch.int32), gob_bits.to(torch.int32)

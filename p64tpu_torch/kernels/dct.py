@@ -84,3 +84,21 @@ def idct8x8(coefs: torch.Tensor) -> torch.Tensor:
     t = rshift_round(t, INV_SHIFT1).to(torch.float64)
     f = torch.matmul(t, mi).to(torch.int64)
     return rshift_round(f, INV_SHIFT2).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# float64 oracles (test-only): the transform with real-valued basis and no
+# rounding, which the integer transforms approximate
+# ---------------------------------------------------------------------------
+
+
+def reference_fdct(blocks: np.ndarray) -> np.ndarray:
+    """(..., 8, 8) -> (..., 8, 8) float64 forward DCT, M @ f @ M^T."""
+    m = M_FLOAT
+    return np.einsum("ux,...xy,vy->...uv", m, blocks.astype(np.float64), m)
+
+
+def reference_idct(coefs: np.ndarray) -> np.ndarray:
+    """(..., 8, 8) -> (..., 8, 8) float64 inverse DCT, M^T @ F @ M."""
+    m = M_FLOAT
+    return np.einsum("ux,...uv,vy->...xy", m, coefs.astype(np.float64), m)

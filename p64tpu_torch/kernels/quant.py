@@ -47,6 +47,25 @@ def zigzag_unscan(zz: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*zz.shape[:-1], 8, 8)
 
 
+def quantize(coefs: torch.Tensor, quant, intra) -> torch.Tensor:
+    """Quantize natural-order DCT coefficients.
+
+    Args:
+      coefs: (..., 8, 8) integer transform coefficients.
+      quant: integer QUANT (1..31) broadcastable against coefs, e.g.
+        (..., 1, 1).
+      intra: bool broadcastable against coefs; where True the DC (position
+        [..., 0, 0]) takes the intra-DC rule.
+
+    Returns (..., 64) int32 zigzag levels (the intra DC level in slot 0):
+    quantize_zz of the zigzag-scanned coefficients.
+    """
+    coefs = torch.as_tensor(coefs)
+    q, i = (torch.as_tensor(v, device=coefs.device).expand(coefs.shape)
+            for v in (quant, intra))
+    return quantize_zz(zigzag_scan(coefs), zigzag_scan(q), zigzag_scan(i))
+
+
 def quantize_zz(coefs_zz: torch.Tensor, quant: torch.Tensor,
                 intra: torch.Tensor) -> torch.Tensor:
     """Quantize zigzag-ordered DCT coefficients.
@@ -80,3 +99,22 @@ def dequantize(levels_zz: torch.Tensor, quant: torch.Tensor,
     dc = 8 * lv[..., :1]
     rec = torch.where(intra & _slot0(lv.shape[-1], lv.device), dc, rec)
     return zigzag_unscan(rec)
+
+
+# numpy mirror for host-side tests ------------------------------------------
+
+
+def np_dequantize(levels_zz: np.ndarray, quant, intra) -> np.ndarray:
+    """numpy oracle of dequantize: (..., 64) zigzag levels -> (..., 8, 8)
+    int32 coefficients, computed in int64."""
+    lv = np.asarray(levels_zz, dtype=np.int64)
+    q = np.broadcast_to(np.asarray(quant, dtype=np.int64), lv.shape)
+    s = np.sign(lv)
+    even_adj = np.where(q % 2 == 0, s, 0)
+    rec = np.where(lv == 0, 0, q * (2 * lv + s) - even_adj)
+    rec = np.clip(rec, COEFF_CLAMP_MIN, COEFF_CLAMP_MAX)
+    intra_b = np.broadcast_to(np.asarray(intra, dtype=bool), lv.shape[:-1])
+    rec[..., 0] = np.where(intra_b, 8 * lv[..., 0], rec[..., 0])
+    flat = np.zeros_like(rec)
+    flat[..., ZIGZAG] = rec
+    return flat.reshape(*lv.shape[:-1], 8, 8).astype(np.int32)

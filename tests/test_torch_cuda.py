@@ -2,7 +2,8 @@
 SAD-search kernel and the four SAD-map kernels; the captured frame step
 (core.graphs) against the eager loop; the decoder on the card against its
 CPU decode and the encoder's reconstruction; the batch encoder, the stream
-mesh, checkpoints, the profiler and the encoder fuzz on the card.
+mesh, checkpoints, the profiler, the encoder fuzz, the compile check and the
+dry run on the card.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they also run on a GPU host without it:
@@ -382,3 +383,25 @@ def test_replayed_reconstruct_equals_eager(cuda):
     got = decoder.reconstruct_seq(QCIF, batch)
     for a, b in zip(got, decoder.reconstruct_seq_eager(QCIF, batch)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_compile_check_and_dry_run_on_the_card(cuda):
+    from p64tpu_torch.tools import dryrun
+
+    fn, args = dryrun.entry(cuda)
+    programs = graphs.PROGRAMS.items()
+    before = me_cuda.LAUNCHES
+    state, out = dryrun.compile_check(fn, args)
+    torch.cuda.synchronize()
+    assert me_cuda.LAUNCHES - before == 1
+    assert graphs.PROGRAMS.items() == programs
+    want_state, want = fn(*dryrun.entry("cpu")[1])
+    for got, exp in ((state, want_state), (out, want)):
+        assert got.keys() == exp.keys()
+        for k in exp:
+            assert torch.equal(got[k].cpu(), exp[k]), k
+    on_card = dryrun.dryrun_multichip(4)
+    assert on_card["devices"] == (torch.device("cuda", 0),) * 4
+    on_cpu = dryrun.dryrun_multichip(4, devices=["cpu"] * 4)
+    assert on_card["streams"] == on_cpu["streams"]

@@ -178,6 +178,34 @@ def test_program_cache_keys_and_releases_least_recently_used():
         ("encode", cfgs[0], 2, torch.device("cpu"))]
 
 
+def test_program_cache_is_bounded_per_device():
+    """The encoder keys of an 8-card mesh, two calls: each card keeps its
+    program, so the second call builds none (a bound of 4 in all would
+    evict on every shard and build 16)."""
+    cache = graphs.ProgramCache()
+    cards = [torch.device("cuda", i) for i in range(8)]
+    built = []
+    for _ in range(2):
+        for dev in cards:
+            cache.get(("encode", "cfg", 1, dev),
+                      lambda dev=dev: built.append(dev) or dev, dev)
+    assert cache.builds == 8 and built == cards and len(cache) == 8
+
+
+def test_program_cache_evicts_per_device_least_recently_used():
+    """5 keys on one device evict down to `size`, least recently used
+    first; the programs of another device stay."""
+    cache = graphs.ProgramCache()
+    cache.get("other", lambda: "other", torch.device("cuda", 1))
+    dev = torch.device("cuda", 0)
+    for k in range(4):
+        cache.get(k, lambda k=k: k, dev)
+    cache.get(0, lambda: "rebuilt", dev)             # a hit, moved up
+    cache.get(4, lambda: 4, dev)                      # 1 is released
+    assert [k for k, _ in cache.items()] == ["other", 2, 3, 0, 4]
+    assert cache.builds == 6 and len(cache) == 5
+
+
 def test_a_failed_build_leaves_nothing_cached():
     def broken(state, frame):
         raise RuntimeError("step fails")

@@ -108,6 +108,61 @@ def test_the_port_has_its_benchmark_tools():
             ("bench", "stage_bench", "bench_breadth")} <= names
 
 
+def test_the_port_has_its_dry_run():
+    """The counterpart of `__graft_entry__.py` lies in the port, so the
+    scan above covers it."""
+    names = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert os.path.join("tools", "dryrun.py") in names
+
+
+def _public_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+#: public names of the JAX package the port leaves out on purpose: TPU
+#: workarounds (the Pallas kernels became CUDA, the XLA SAD formulations,
+#: the barrel-shift MC whose oracle is the gather the port does) and JAX
+#: machinery (the jitted sequence became core.graphs, the mesh axis name)
+NOT_PORTED = {
+    os.path.join("kernels", "me_pallas.py"): None,
+    os.path.join("kernels", "me.py"): {"sad_map_i8", "sad_map_shifted"},
+    os.path.join("core", "predict.py"): {"mc_predict_gather"},
+    os.path.join("core", "encoder.py"): {"encode_sequence_jit"},
+    os.path.join("distrib", "mesh.py"): {"STREAM_AXIS"},
+}
+
+
+def _jax_modules():
+    root = os.path.join(REPO, "p64tpu")
+    return sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, _, names in os.walk(root) for n in names
+                  if n.endswith(".py"))
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_public_name_of_the_jax_package_has_a_counterpart(module):
+    want = NOT_PORTED.get(module, set())
+    port = os.path.join(PORT, module)
+    if want is None:                   # its kernels are in p64tpu_torch/csrc
+        assert not os.path.exists(port)
+        return
+    assert os.path.isfile(port), module
+    missing = (_public_names(os.path.join(REPO, "p64tpu", module))
+               - _public_names(port))
+    assert missing == want
+
+
 def test_native_source_lies_inside_the_port():
     src = os.path.realpath(_build.NATIVE_SOURCE)
     assert os.path.commonpath([src, os.path.realpath(PORT)]) == \

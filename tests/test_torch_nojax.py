@@ -5,8 +5,9 @@ every module (the benchmark tools among them), encodes QCIF at a fixed
 quantizer and under rate control with MQUANT segments, decodes both
 streams through the native engine, runs the parity gate's SAD checks on
 the CPU, encodes on a mesh of two CPU shards, round-trips a checkpoint,
-builds the benchmark's content and stage inputs and runs both fuzz tools
-briefly."""
+builds the benchmark's content and stage inputs, runs both fuzz tools
+briefly, and runs the dry run on two CPU shards and the compile check's
+step."""
 
 import os
 import subprocess
@@ -46,7 +47,7 @@ import p64tpu_torch
 from p64tpu_torch import cli
 from p64tpu_torch.kernels import me_variants, me_variants_cuda
 from p64tpu_torch.tools import (batch_decode, batch_encode, bench,
-                                bench_breadth, fuzz_differential,
+                                bench_breadth, dryrun, fuzz_differential,
                                 fuzz_encoder, parity, pinned, profile,
                                 stage_bench)
 from p64tpu_torch.distrib import mesh, multihost
@@ -95,6 +96,10 @@ assert bench.make_content(QCIF, 1, 1)["y"].shape == (1, 1, 144, 176)
 assert set(stage_bench.make_stages(1, "cpu")) == set(stage_bench.STAGES)
 assert fuzz_encoder.run("cpu", count=1)["configs"] == 1
 assert fuzz_differential.run("cpu", count=2)["streams"] == 2
+dry = dryrun.dryrun_multichip(2, devices=["cpu"] * 2)
+assert dry["total_bits"] == sum(n for _, n in dry["streams"]) > 0
+fn, args = dryrun.entry(device="cpu")
+assert set(dryrun.compile_check(fn, args)[0]) == set(args[0])
 assert "bench" not in sys.modules and "tools" not in sys.modules
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
