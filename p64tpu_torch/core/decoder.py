@@ -24,6 +24,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..spec.constants import MB_SIZE, Format
 from ..entropy.parse import ParsedFrame
 from ..native import load
@@ -77,10 +78,13 @@ def stack_seqs(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
                          "one batch")
     if np.shape(seqs[0]["levels8"])[1] != fmt.num_mbs:
         raise ValueError(f"sequence is not {fmt.name}")
-    host = {k: np.stack([np.asarray(s[k]) for s in seqs], axis=1)
-            for k in SEQ_KEYS}
-    _check_mv(fmt, host["mv"])
-    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    with trace.span("p64.decode.stack"):
+        host = {k: np.stack([np.asarray(s[k]) for s in seqs], axis=1)
+                for k in SEQ_KEYS}
+        _check_mv(fmt, host["mv"])
+        for v in host.values():
+            trace.count_copy(v, dev, v.nbytes)
+        return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
 
 
 def _init_planes(fmt: Format, batch: Mapping[str, torch.Tensor],
@@ -169,9 +173,22 @@ def decode_seq_batch(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
     """Reconstruct many equal-length streams in one batch on `device`.
 
     seqs: parse_to_tensors seq dicts, all of format fmt and of one frame
-    count.  Returns, per stream, (y, cb, cr) uint8 (T, ...) arrays."""
-    planes = reconstruct_seq(fmt, stack_seqs(fmt, seqs, device))
-    y, cb, cr = (p.cpu().numpy() for p in planes)
+    count.  Returns, per stream, (y, cb, cr) uint8 (T, ...) arrays.
+
+    Spans (trace): the stack (stack_seqs), the replays (core.graphs), then
+    `p64.decode.wait` for the card to finish them and
+    `p64.decode.planes_out` for the copy of the planes to host memory."""
+    batch = stack_seqs(fmt, seqs, device)
+    trace.count("p64.decode.macroblocks",
+                batch["levels8"].shape[0] * len(seqs) * fmt.num_mbs)
+    planes = reconstruct_seq(fmt, batch)
+    with trace.span("p64.decode.wait"):
+        if planes[0].is_cuda:
+            torch.cuda.current_stream(planes[0].device).synchronize()
+    with trace.span("p64.decode.planes_out"):
+        for p in planes:
+            trace.count_copy(p, torch.device("cpu"), p.nbytes)
+        y, cb, cr = (p.cpu().numpy() for p in planes)
     return [(y[i], cb[i], cr[i]) for i in range(len(seqs))]
 
 

@@ -63,6 +63,7 @@ from ..entropy.encode import FrameSymbols, serialize_sequence
 from ..kernels.dct import fdct8x8_zz
 from ..kernels.me import full_search
 from ..kernels.quant import quantize_zz
+from .. import trace
 from ..native import load
 from ..utils import device_const, fan_map
 from . import graphs
@@ -611,12 +612,15 @@ def outputs_to_host(outputs: Mapping[str, torch.Tensor]
     if dev.type != "cuda":
         return {k: outputs[k] for k in SYMBOL_KEYS}, None
     host = {}
-    for k in SYMBOL_KEYS:
-        v = outputs[k]
-        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-        host[k].copy_(v, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
+    with trace.span("p64.encode.to_host"):
+        for k in SYMBOL_KEYS:
+            v = outputs[k]
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            trace.count("p64.pinned.alloc_bytes", host[k].nbytes)
+            trace.count_copy(v, host[k], v.nbytes)
+            host[k].copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
     return host, event
 
 
@@ -627,28 +631,29 @@ def outputs_to_symbols(cfg: EncoderConfig,
     coded frames, ready for entropy.encode.serialize_sequence.  Outputs
     may be tensors on any device or host arrays (numpy, or the host
     tensors of outputs_to_host once their event has completed)."""
-    host = {k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
-                                                       torch.Tensor)
-                else np.asarray(outputs[k])) for k in SYMBOL_KEYS}
-    streams = []
-    for si in range(host["frame_coded"].shape[0]):
-        syms = []
-        for i in range(host["frame_coded"].shape[1]):
-            if not host["frame_coded"][si, i]:
-                continue
-            # reassemble int16 levels from the int8 tensor + intra-DC
-            # sidecar (nonzero exactly on intra coded MBs: DC FLC >= 1)
-            lv = host["levels8"][si, i].astype(np.int16)
-            dc = host["dc_intra"][si, i].astype(np.int16)
-            lv[..., 0] = np.where(dc > 0, dc, lv[..., 0])
-            syms.append(FrameSymbols(
-                tr=int(host["tr"][si, i]), gquant=host["gquant"][si, i],
-                coded=host["coded"][si, i], mtype=host["mtype"][si, i],
-                mv=host["mv"][si, i], cbp=host["cbp"][si, i],
-                levels=lv, quant_mb=host["quant_mb"][si, i],
-                n_stuff=int(host["n_stuff"][si, i])))
-        streams.append(syms)
-    return streams
+    with trace.span("p64.encode.symbols"):
+        host = {k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
+                                                           torch.Tensor)
+                    else np.asarray(outputs[k])) for k in SYMBOL_KEYS}
+        streams = []
+        for si in range(host["frame_coded"].shape[0]):
+            syms = []
+            for i in range(host["frame_coded"].shape[1]):
+                if not host["frame_coded"][si, i]:
+                    continue
+                # reassemble int16 levels from the int8 tensor + intra-DC
+                # sidecar (nonzero exactly on intra coded MBs: DC FLC >= 1)
+                lv = host["levels8"][si, i].astype(np.int16)
+                dc = host["dc_intra"][si, i].astype(np.int16)
+                lv[..., 0] = np.where(dc > 0, dc, lv[..., 0])
+                syms.append(FrameSymbols(
+                    tr=int(host["tr"][si, i]), gquant=host["gquant"][si, i],
+                    coded=host["coded"][si, i], mtype=host["mtype"][si, i],
+                    mv=host["mv"][si, i], cbp=host["cbp"][si, i],
+                    levels=lv, quant_mb=host["quant_mb"][si, i],
+                    n_stuff=int(host["n_stuff"][si, i])))
+            streams.append(syms)
+        return streams
 
 
 def serialize_streams(cfg: EncoderConfig,
@@ -660,7 +665,7 @@ def serialize_streams(cfg: EncoderConfig,
     does.  Outputs as outputs_to_symbols takes them."""
     load()   # build/load the engine once before fanning out
     return fan_map(lambda syms: serialize_sequence(cfg.fmt, syms),
-                   outputs_to_symbols(cfg, outputs))
+                   outputs_to_symbols(cfg, outputs), name="serialize")
 
 
 def encode_to_bytes(cfg: EncoderConfig, frames: Mapping[str, object],

@@ -48,6 +48,10 @@ many launches the captured region made, and every replay adds that many.
 The launches of the warm-up and of the capture call itself are the
 program's build, as `jax.jit`'s trace and compile are, and are taken back
 out: the count stays one per frame encoded.
+
+Spans (`trace`, on the host): `p64.graphs.build` around a build on a
+cache miss, `p64.graphs.replays` around `Program.run`'s queued replays and
+output copies.  Nothing is traced inside the captured region.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from typing import Callable, Dict, Hashable, List, Mapping, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..kernels import me_cuda
 
 Tensors = Dict[str, torch.Tensor]
@@ -211,7 +216,7 @@ class Program:
         `state`; returns (final state, outputs stacked as (S, T, ...)),
         all fresh tensors."""
         t = next(iter(inputs.values())).shape[axis]
-        with _guard(self.device):
+        with _guard(self.device), trace.span("p64.graphs.replays"):
             _copy_into(self.state, state, "state")
             results = {k: torch.empty((v.shape[0], t, *v.shape[1:]),
                                       dtype=v.dtype, device=v.device)
@@ -257,7 +262,8 @@ class ProgramCache:
             held = [k for k, (d, _) in self._programs.items() if d == device]
             for k in held[:max(0, len(held) - self.size + 1)]:
                 del self._programs[k]
-            entry = (device, build())
+            with trace.span("p64.graphs.build"):
+                entry = (device, build())
             self.builds += 1
         self._programs[key] = entry
         return entry[1]

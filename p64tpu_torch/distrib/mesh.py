@@ -37,6 +37,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from .. import trace
 from ..core import encoder as enc
 
 #: a mesh: devices in stream order, one shard each
@@ -73,7 +74,8 @@ def shard_batch(mesh: Mesh, tree: Mapping[str, object]) -> Sharded:
     larger first) and copy slice i to mesh[i].
 
     Each slice goes from host memory straight to its device: nothing is
-    staged through one device first."""
+    staged through one device first.  Copies that cross to a card are
+    counted (trace.count_copy)."""
     n = next(iter(tree.values())).shape[0]
     if n < len(mesh):
         raise ValueError(f"shard_batch: {n} streams cannot fill "
@@ -82,8 +84,12 @@ def shard_batch(mesh: Mesh, tree: Mapping[str, object]) -> Sharded:
     out, s = [], 0
     for i, dev in enumerate(mesh):
         e = s + q + (i < r)
-        out.append({k: torch.as_tensor(v[s:e]).to(dev)
-                    for k, v in tree.items()})
+        shard = {}
+        for k, v in tree.items():
+            host = torch.as_tensor(v[s:e])
+            trace.count_copy(host, dev, host.nbytes)
+            shard[k] = host.to(dev)
+        out.append(shard)
         s = e
     return out
 

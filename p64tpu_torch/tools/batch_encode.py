@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..io import yuv
 from ..control.ratecontrol import RateConfig
 from ..core import encoder as enc
@@ -40,21 +41,26 @@ def _dispatch_shard(cfg: enc.EncoderConfig, batch: Dict[str, np.ndarray],
     most one shard per stream) and the copy of its symbol outputs to host
     memory; returns without waiting for the device.  Device errors surface
     in _collect, or in a later CUDA call."""
-    n = batch["y"].shape[0]
+    n, t = batch["y"].shape[:2]
     sub = mesh[:min(len(mesh), n)]
     run = dm.make_sharded_encoder(cfg, sub)
-    _, outputs, _ = run(dm.shard_batch(sub, dm.init_states(cfg, n)),
-                        dm.shard_batch(sub, batch))
-    return [enc.outputs_to_host(out) for out in outputs]
+    with trace.span("p64.encode.dispatch"):
+        trace.count("p64.encode.macroblocks", n * t * cfg.fmt.num_mbs)
+        with trace.span("p64.encode.frames_in"):
+            states = dm.shard_batch(sub, dm.init_states(cfg, n))
+            frames = dm.shard_batch(sub, batch)
+        _, outputs, _ = run(states, frames)
+        return [enc.outputs_to_host(out) for out in outputs]
 
 
 def _collect(cfg: enc.EncoderConfig,
              pending: Pending) -> List[Tuple[bytes, int]]:
     """Wait for a dispatched shard's host copies (its events alone, not
     the work queued after them) and serialize its streams."""
-    for _, event in pending:
-        if event is not None:
-            event.synchronize()
+    with trace.span("p64.encode.wait"):
+        for _, event in pending:
+            if event is not None:
+                event.synchronize()
     return dm.serialize_streams(cfg, [host for host, _ in pending])
 
 
@@ -96,6 +102,10 @@ def encode_resilient(
     every later dispatch in the process fails with it, so every remaining
     range ends as None.
 
+    The call is one `p64.encode.job` span, the root of its chunks' spans
+    (`trace`: dispatch, frames in, replays, copies to host, wait, symbols,
+    serialize).
+
     chunk > 0 splits the batch into `chunk`-stream pieces and PIPELINES
     them, at most two in flight: after a chunk's frame loop is queued and
     its symbol outputs' copies to pinned host memory are queued behind it
@@ -119,6 +129,13 @@ def encode_resilient(
     byte-exact), but logs may misattribute the first failure and the
     retry budget is approximate across in-flight neighbours.
     """
+    with trace.span("p64.encode.job"):
+        return _encode_resilient(cfg, batch, mesh, retries, fail_hook, log,
+                                 chunk)
+
+
+def _encode_resilient(cfg, batch, mesh, retries, fail_hook, log, chunk):
+    """encode_resilient's work, inside its job span."""
     n = batch["y"].shape[0]
     results: List[Optional[Tuple[bytes, int]]] = [None] * n
     if chunk > 0:

@@ -9,7 +9,7 @@ timing method, metric names and output.  Prints exactly ONE JSON line on
 stdout,
 
   {"metric": "cif_encode_macroblocks_per_sec_per_chip", "value": N,
-   "unit": "MB/s", "vs_baseline": R, "compile_s": C}
+   "unit": "MB/s", "compile_s": C}
 
 and everything else on stderr, whose first line is the card's name and
 power limit (nvidia-smi) with the torch and CUDA versions.  The hardware
@@ -25,7 +25,6 @@ already read):
   P64_BENCH_FRAMES      frames per stream (32)
   P64_BENCH_REPS        timed reps after one warm-up (3); best rep counts
   P64_BENCH_QUANT       fixed quantizer (10)
-  P64_BASELINE_MBS      vs_baseline divisor (1e4, BASELINE.md's estimate)
   P64_DECODE_STREAMS    streams of the decode configuration (16)
   P64_PIPELINE_STREAMS  streams of the pipeline configuration (64)
   P64_SKIP_PARITY=1     skip the gate (said so on stderr)
@@ -485,7 +484,6 @@ def main(argv=None) -> int:
     frames_t = int(os.environ.get("P64_BENCH_FRAMES", "32"))
     reps = int(os.environ.get("P64_BENCH_REPS", "3"))
     quant = int(os.environ.get("P64_BENCH_QUANT", "10"))
-    baseline_mbs = float(os.environ.get("P64_BASELINE_MBS", "1e4"))
     dev = torch.device("cuda", 0)                     # one chip
 
     # stdout carries the JSON line alone
@@ -504,8 +502,7 @@ def main(argv=None) -> int:
         else:
             r = measure(config, streams, frames_t, reps, quant, device=dev)
             metric = f"{config}_encode_macroblocks_per_sec_per_chip"
-    out = {"metric": metric, "value": round(r["mbs"], 1), "unit": "MB/s",
-           "vs_baseline": round(r["mbs"] / baseline_mbs, 2)}
+    out = {"metric": metric, "value": round(r["mbs"], 1), "unit": "MB/s"}
     if "compile_s" in r:
         out["compile_s"] = round(r["compile_s"], 1)
     print(json.dumps(out), flush=True)

@@ -6,10 +6,15 @@
 Port of `p64tpu/tools/profile.py`.  Encodes random content (S streams x T
 frames, fixed quantizer) through `core.encoder.encode_sequence` and prints
 the steady-state encode rate: best of 3 runs, each ending in a
-device-to-host read of the bit total.  With --trace-dir, one more run is
-traced with `torch.profiler` (CPU and, on a card, CUDA activity): a Chrome
-trace (chrome://tracing, Perfetto) lands in the directory, and the top
-operators by self device time (self CPU time on the CPU) are printed.
+device-to-host read of the bit total.  With --trace-dir, one batch encode
+of the same streams from host memory to bytes
+(`tools.batch_encode.encode_resilient`, one dispatch) is traced with
+`torch.profiler` (CPU and, on a card, CUDA activity): a Chrome trace
+(chrome://tracing, Perfetto) lands in the directory, and three tables are
+printed: the top operators by self device time (self CPU time on the
+CPU), the port's `p64.*` spans of the traced run (count, total ms, and
+self ms: a span less the time its child spans cover) and its counters
+(`trace`).
 """
 
 from __future__ import annotations
@@ -52,9 +57,9 @@ def main(argv=None) -> int:
     S, T = args.streams, args.frames
     rng = np.random.default_rng(0)
     ys = rng.integers(0, 256, (S, T, fmt.height, fmt.width), dtype=np.uint8)
-    frames = {k: torch.as_tensor(v, device=dev) for k, v in dict(
-        y=ys, cb=ys[:, :, ::2, ::2] // 2 + np.uint8(1),
-        cr=ys[:, :, 1::2, ::2] // 2 + np.uint8(1)).items()}
+    host = dict(y=ys, cb=ys[:, :, ::2, ::2] // 2 + np.uint8(1),
+                cr=ys[:, :, 1::2, ::2] // 2 + np.uint8(1))
+    frames = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
     cfg = enc.EncoderConfig(fmt=fmt, rate=RateConfig(fixed_quant=args.quant))
 
     def run() -> int:
@@ -78,17 +83,34 @@ def main(argv=None) -> int:
     if args.trace_dir:
         from torch.profiler import ProfilerActivity, profile
 
+        from .. import trace
+        from ..distrib.mesh import make_mesh
+        from .batch_encode import encode_resilient
+
         on_card = dev.type == "cuda"
         activities = [ProfilerActivity.CPU]
         if on_card:
             activities.append(ProfilerActivity.CUDA)
+        mesh = make_mesh(devices=[dev])
+        before = {r.id for r in trace.spans()}
+        counted = trace.counters()
         with profile(activities=activities) as prof:
-            run()
+            encode_resilient(cfg, host, mesh)
         os.makedirs(args.trace_dir, exist_ok=True)
         path = os.path.join(args.trace_dir, "trace.json")
         prof.export_chrome_trace(path)
         sort = "self_device_time_total" if on_card else "self_cpu_time_total"
         print(prof.key_averages().table(sort_by=sort, row_limit=TOP_OPS))
+        print(f"{'span':<28} {'count':>6} {'total ms':>12} {'self ms':>12}")
+        for name, n, total, own in trace.summarize(
+                [r for r in trace.spans() if r.id not in before]):
+            print(f"{name:<28} {n:>6} {total / 1e6:>12.3f} "
+                  f"{own / 1e6:>12.3f}")
+        print(f"{'counter':<28} {'value':>16}")
+        for name, value in sorted(trace.counters().items()):
+            value -= counted.get(name, 0)
+            if value:
+                print(f"{name:<28} {value:>16}")
         print(f"trace written to {path} (chrome://tracing or Perfetto)")
     return 0
 

@@ -5,10 +5,12 @@ from __future__ import annotations
 import glob
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Sequence, Tuple, TypeVar
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, TypeVar
 
 import numpy as np
 import torch
+
+from . import trace
 
 _T = TypeVar("_T")
 _R = TypeVar("_R")
@@ -27,19 +29,23 @@ def device_const(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return hit[1]
 
 
-def fan_map(fn: Callable[[_T], _R], items: Sequence[_T]) -> List[_R]:
+def fan_map(fn: Callable[[_T], _R], items: Sequence[_T], *,
+            name: Optional[str] = None) -> List[_R]:
     """Map fn over items across a thread pool, order preserved.
 
     For per-stream host work whose heavy lifting happens in the ctypes C++
     engine (GIL released for the duration of the call): encode serialize
     (core.encoder.serialize_streams) and decode parse (core.decoder
     .parse_many).  Tiny batches stay serial -- pool setup would dominate.
+    The fan-out is one span, `p64.fan.<name>` (default fn.__name__), on
+    the calling thread (trace).
     """
-    if len(items) <= 2:
-        return [fn(x) for x in items]
-    workers = min(len(items), (os.cpu_count() or 2))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(fn, items))
+    with trace.span("p64.fan." + (name or getattr(fn, "__name__", "map"))):
+        if len(items) <= 2:
+            return [fn(x) for x in items]
+        workers = min(len(items), (os.cpu_count() or 2))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(fn, items))
 
 
 def expand_inputs(patterns: Sequence[str]) -> List[str]:
