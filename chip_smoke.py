@@ -133,6 +133,15 @@ run with a non-zero exit and no result line:
                  8 frames coded, the SAD-search kernel launched on every
                  frame of every shard, and one program built for the 8
                  equal shard keys, kept for the second call
+ 22. serialize -- the headline content encoded on the card at q=10 and
+                 at 1,024 kbit/s rate control (p = 16), 128 CIF streams x
+                 32 frames each, its symbol outputs copied to pinned host
+                 memory (core.encoder.outputs_to_host); the batch
+                 serializer (core.encoder.serialize_streams) over them
+                 equals the per-stream native serialize_sequence over
+                 outputs_to_symbols, stream for stream, and the device bit
+                 model; finalize ms (pinned copies, wait, serialize) and the
+                 per-stream path's ms
 
 From phase 4 on, every encode_sequence and reconstruct_seq on the card
 replays a captured program (core.graphs): the pins, the headline, the
@@ -205,6 +214,9 @@ FUZZ_STREAMS, FUZZ_DECODE_SEED = 400, 999
 #: the dry run's shards, and the JAX package's bit total and coded frames
 #: for them (its dry run over 8 devices)
 DRYRUN_SHARDS, DRYRUN_BITS, DRYRUN_CODED = 8, 798_196, 8
+#: the serialize phase's rate-controlled configuration (port_bench's
+#: cif_rc_p16: p = 16, CIF at 30 Hz)
+SERIALIZE_RC_BITS, SERIALIZE_RC_FPS = 1_024_000, 30
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -862,6 +874,69 @@ def batch_phase(dev, frames, datas, card: str) -> int:
     log(f"[batch] CLI on {CLI_STREAMS} .y4m files: .p64 == encode_to_bytes; "
         f"{r.stdout.strip()}")
     return launches
+
+
+def serialize_phase(dev, frames, card: str) -> dict:
+    """Phase 22: for the headline configuration and the p = 16 rate
+    configuration, encode `frames` (numpy, S x T CIF) on `dev`, copy the
+    symbol outputs to pinned host memory, and hold the batch serializer
+    over them to the per-stream engine over outputs_to_symbols.  Returns
+    per configuration the finalize and per-stream ms and the bit total."""
+    import dataclasses
+
+    import torch
+
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.entropy.encode import serialize_sequence
+
+    base = headline_cfg(emit_recon=False)
+    configs = {"cif_q10": base, "cif_rc_p16": dataclasses.replace(
+        base, rate=RateConfig(bit_rate=SERIALIZE_RC_BITS,
+                              frame_rate=SERIALIZE_RC_FPS))}
+    dev_frames = {k: torch.as_tensor(v, device=dev) for k, v in frames.items()}
+    n_streams, n_frames = frames["y"].shape[:2]
+    got = {}
+    for name, cfg in configs.items():
+        _, outputs = enc.encode_sequence(cfg, dev_frames, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        host, event = enc.outputs_to_host(outputs)
+        event.synchronize()
+        t1 = time.perf_counter()
+        batch = enc.serialize_streams(cfg, host)
+        t2 = time.perf_counter()
+        per_stream = [serialize_sequence(cfg.fmt, syms)
+                      for syms in enc.outputs_to_symbols(cfg, host)]
+        t3 = time.perf_counter()
+        if not all(host[k].is_pinned() for k in enc.SYMBOL_KEYS):
+            raise AssertionError(f"serialize {name}: host outputs not pinned")
+        bad = [i for i, (a, b) in enumerate(zip(batch, per_stream)) if a != b]
+        if bad or len(batch) != n_streams:
+            raise AssertionError(f"serialize {name}: batch serializer != "
+                                 f"per-stream engine on streams {bad[:8]}")
+        bits = sum(n for _, n in batch)
+        if bits != int(outputs["total_bits"].sum()):
+            raise AssertionError(f"serialize {name}: {bits} bits != device "
+                                 "model")
+        if name == "cif_q10" and bits != HEADLINE_BITS:
+            raise AssertionError(f"serialize {name}: {bits} bits != "
+                                 f"{HEADLINE_BITS}")
+        coded = host["frame_coded"].numpy()
+        got[name] = dict(finalize_ms=(t2 - t0) * 1e3,
+                         copy_ms=(t1 - t0) * 1e3,
+                         serialize_ms=(t2 - t1) * 1e3,
+                         per_stream_ms=(t3 - t2) * 1e3, bits=bits)
+        log(f"[serialize] {name} {n_streams}x{n_frames} CIF: batch "
+            f"serializer == per-stream engine on every stream, {bits} bits "
+            f"== device model ({int(coded.sum())} coded frames, "
+            f"{int(host['n_stuff'].numpy().sum())} stuffing codes); "
+            f"finalize {got[name]['finalize_ms']:.1f} ms (pinned copies and "
+            f"wait {got[name]['copy_ms']:.1f}, serialize "
+            f"{got[name]['serialize_ms']:.1f}), per-stream path "
+            f"{got[name]['per_stream_ms']:.1f} ms, on {card}")
+        del outputs, host
+    return got
 
 
 def checkpoint_phase(dev, dev_frames, outputs, card: str) -> int:
@@ -1775,7 +1850,10 @@ def main() -> int:
 
     # 21. the compile check and the multi-device dry run
     by_path["dryrun"] = dryrun_phase(dev, card)
-    log(f"[done] all 21 phases passed in {time.perf_counter() - t_start:.1f}"
+
+    # 22. the batch serializer on the card's pinned outputs
+    serialize_phase(dev, frames, card)
+    log(f"[done] all 22 phases passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
     log(card)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -59,12 +60,12 @@ from ..control.ratecontrol import (
     stuff_count,
 )
 from ..entropy import lengths
-from ..entropy.encode import FrameSymbols, serialize_sequence
+from ..entropy.encode import FrameSymbols
 from ..kernels.dct import fdct8x8_zz
 from ..kernels.me import full_search
 from ..kernels.quant import quantize_zz
 from .. import trace
-from ..native import load
+from ..native import load_batch
 from ..utils import device_const, fan_map
 from . import graphs
 from .blocks import (
@@ -590,9 +591,10 @@ def encode_sequence_eager(cfg: EncoderConfig, frames: Mapping[str, object],
 # ---------------------------------------------------------------------------
 
 
-#: the output keys outputs_to_symbols reads
+#: the output keys the host finalize reads: outputs_to_symbols, and
+#: serialize_streams, which sizes each stream's bytes from `total_bits`
 SYMBOL_KEYS = ("frame_coded", "tr", "gquant", "quant_mb", "coded", "mtype",
-               "mv", "cbp", "levels8", "dc_intra", "n_stuff")
+               "mv", "cbp", "levels8", "dc_intra", "n_stuff", "total_bits")
 
 
 def outputs_to_host(outputs: Mapping[str, torch.Tensor]
@@ -628,9 +630,10 @@ def outputs_to_symbols(cfg: EncoderConfig,
                        outputs: Mapping[str, object]
                        ) -> List[List[FrameSymbols]]:
     """Stacked (S, T, ...) outputs -> per stream, the FrameSymbols of its
-    coded frames, ready for entropy.encode.serialize_sequence.  Outputs
-    may be tensors on any device or host arrays (numpy, or the host
-    tensors of outputs_to_host once their event has completed)."""
+    coded frames, ready for entropy.encode.serialize_sequence: the
+    single-stream API, and the oracle of serialize_streams.  Outputs may
+    be tensors on any device or host arrays (numpy, or the host tensors
+    of outputs_to_host once their event has completed)."""
     with trace.span("p64.encode.symbols"):
         host = {k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
                                                            torch.Tensor)
@@ -659,13 +662,34 @@ def outputs_to_symbols(cfg: EncoderConfig,
 def serialize_streams(cfg: EncoderConfig,
                       outputs: Mapping[str, object]
                       ) -> List[Tuple[bytes, int]]:
-    """Host finalize of a multi-stream batch: per stream, (bytes, nbits)
-    from the native serializer, fanned across threads (the ctypes engine
-    releases the GIL), as the reference's `distrib.mesh.serialize_streams`
-    does.  Outputs as outputs_to_symbols takes them."""
-    load()   # build/load the engine once before fanning out
-    return fan_map(lambda syms: serialize_sequence(cfg.fmt, syms),
-                   outputs_to_symbols(cfg, outputs), name="serialize")
+    """Host finalize of a multi-stream batch: per stream, (bytes, nbits).
+
+    The batch serializer (native.BatchSerializer) reads the stacked
+    SYMBOL_KEYS outputs in place, int8 levels and all, and writes each
+    stream's bytes into a slot sized from its `total_bits`.  Two spans on
+    the calling thread: `p64.encode.symbols`, the outputs made ready for
+    the engine (host arrays in its dtypes, the slots), then
+    `p64.fan.serialize`, the engine over ranges of streams fanned across
+    threads (utils.fan_map; ctypes releases the GIL), which also checks
+    the symbols it writes.  Outputs as outputs_to_symbols takes them.
+    Raises ValueError on symbols out of range (the messages of the
+    per-stream engine's checks) and AssertionError where a stream's bit
+    count differs from its `total_bits`: the device length model and the
+    serializer have diverged."""
+    engine = load_batch()   # build/load the engine once before fanning out
+    with trace.span("p64.encode.symbols"):
+        batch = engine.prepare(cfg.fmt, {
+            k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
+                                                       torch.Tensor)
+                else np.asarray(outputs[k])) for k in SYMBOL_KEYS})
+    n = batch.streams
+    trace.count("p64.serialize.streams", n)
+    step = max(1, -(-n // (os.cpu_count() or 1)))
+    parts = fan_map(lambda r: engine.run(batch, *r),
+                    [(a, min(a + step, n)) for a in range(0, n, step)],
+                    name="serialize")
+    batch.check()
+    return [r for part in parts for r in part]
 
 
 def encode_to_bytes(cfg: EncoderConfig, frames: Mapping[str, object],
@@ -675,16 +699,9 @@ def encode_to_bytes(cfg: EncoderConfig, frames: Mapping[str, object],
     """Full pipeline: device encode + host serialize, per stream.
 
     Returns (stream_bytes per stream, outputs, final_state); raises if the
-    serializer did not emit exactly the device-predicted bit count.
+    serializer did not emit exactly the device-predicted bit count
+    (serialize_streams).
     """
     final_state, outputs = encode_sequence(cfg, frames, state, device=device)
-    predicted = outputs["total_bits"].sum(dim=1).tolist()
-    data = []
-    for si, (b, nbits) in enumerate(serialize_streams(cfg, outputs)):
-        if nbits != predicted[si]:
-            raise AssertionError(
-                f"stream {si}: serializer produced {nbits} bits, device "
-                f"model predicted {predicted[si]} -- length model and "
-                "serializer have diverged")
-        data.append(b)
+    data = [b for b, _ in serialize_streams(cfg, outputs)]
     return data, outputs, final_state

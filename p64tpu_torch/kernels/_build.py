@@ -17,6 +17,10 @@ compiled with the flags of the JAX package's Makefile:
   g++ -O3 -Wall -Wextra -fPIC -std=c++17 -shared
       -o build/native/libp64bitio.so p64tpu_torch/csrc/bitio.cpp
 
+The batch serializer (`csrc/serialize_batch.cpp`, which includes
+`bitio.cpp`) is built the same way into `build/native/libp64serialize.so`,
+and rebuilt when either source is newer.
+
 The build directory (`build/` at the repository root) is git-ignored; a
 library is rebuilt when its source is newer.  A missing compiler, a failed
 compile or a library that does not load raises BuildError -- there is no
@@ -30,7 +34,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
@@ -44,6 +48,9 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NATIVE_SOURCE = os.path.join(CSRC, "bitio.cpp")
 NATIVE_BUILD_DIR = os.path.join(_REPO, "build", "native")
 NATIVE_LIB = "libp64bitio.so"
+#: the batch serializer's source (it includes NATIVE_SOURCE) and library
+BATCH_SOURCE = os.path.join(CSRC, "serialize_batch.cpp")
+BATCH_LIB = "libp64serialize.so"
 #: the JAX package's `native/Makefile` CXXFLAGS plus -shared
 CXX_FLAGS = ["-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared"]
 
@@ -102,11 +109,12 @@ def cxx_command(cxx: str, source: str, out: str) -> List[str]:
 
 
 def _compile(source: str, out: str, find: Callable[[], str],
-             command: Callable[[str, str, str], List[str]]) -> str:
-    """Compile source into out if out is missing or older than source;
-    returns out."""
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(source)):
+             command: Callable[[str, str, str], List[str]],
+             includes: Sequence[str] = ()) -> str:
+    """Compile source into out if out is missing or older than source or
+    a file it includes; returns out."""
+    if (os.path.exists(out) and os.path.getmtime(out) >= max(
+            os.path.getmtime(f) for f in (source, *includes))):
         return out
     tool = find()
     build_dir = os.path.dirname(out)
@@ -155,6 +163,14 @@ def build_native() -> str:
     returns the library path (under NATIVE_BUILD_DIR)."""
     return _compile(NATIVE_SOURCE, os.path.join(NATIVE_BUILD_DIR, NATIVE_LIB),
                     find_cxx, cxx_command)
+
+
+def build_batch_serializer() -> str:
+    """Compile the batch serializer if its library is missing or older
+    than its source or the bit-I/O engine's; returns the library path
+    (under NATIVE_BUILD_DIR)."""
+    return _compile(BATCH_SOURCE, os.path.join(NATIVE_BUILD_DIR, BATCH_LIB),
+                    find_cxx, cxx_command, includes=(NATIVE_SOURCE,))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes as C
 import threading
-from typing import List, Optional, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -54,6 +54,41 @@ _PARSE_ERRORS = {-1: "no PSC", -2: "bad VLC code", -3: "bad GN",
                  -4: "output overflow", -5: "frame-cap overflow",
                  -6: "forbidden value", -7: "truncated stream",
                  -8: "MV outside picture"}
+
+
+def check_symbols(coded: np.ndarray, mtype: np.ndarray, cbp: np.ndarray,
+                  quant_mb: np.ndarray, gquant: np.ndarray) -> None:
+    """Raise ValueError where the symbols of the transmitted MBs (`coded`,
+    a bool mask over the MB arrays) or the GQUANTs of the transmitted
+    pictures are out of range (raise_symbol_errors).  The C++ engines
+    trust their inputs: a CBP of 0 or a missing MQUANT value would
+    serialize an UNDECODABLE stream that even the length-model ==
+    serializer check cannot catch, since both count 0 bits for CBP 0.  The
+    Python oracle asserts the same."""
+    raise_symbol_errors(
+        int((luts.MTYPE_CBP[mtype] & coded & ((cbp < 1) | (cbp > 63))).sum()),
+        int((luts.MTYPE_MQUANT[mtype] & coded
+             & ((quant_mb < 1) | (quant_mb > 31))).sum()),
+        int(((gquant < 1) | (gquant > 31)).sum()))
+
+
+def raise_symbol_errors(cbp: int, mquant: int, gquant: int,
+                        code: int = 0) -> None:
+    """Raise ValueError if any count is nonzero, first that of coded
+    CBP-bearing MBs with a CBP outside 1..63, then of MQUANT MBs without a
+    valid quantizer, of GQUANTs outside 1..31, and of MBs whose MTYPE or
+    MVD the code tables do not hold."""
+    if cbp:
+        raise ValueError(
+            f"CBP out of range 1..63 on {cbp} coded CBP-bearing MBs")
+    if mquant:
+        raise ValueError(
+            f"MQUANT MTYPE without a valid 1..31 quant_mb on {mquant} MBs")
+    if gquant:
+        raise ValueError("GQUANT out of range 1..31")
+    if code:
+        raise ValueError(f"MTYPE or MVD outside the code tables on {code} "
+                         "MBs")
 
 
 class NativeBitIO:
@@ -168,26 +203,7 @@ class NativeBitIO:
             [f.quant_mb if f.quant_mb is not None
              else np.zeros(n_mb, np.int32) for f in frames]), np.int32)
         n_stuff = np.ascontiguousarray([f.n_stuff for f in frames], np.int32)
-        # validity guards mirroring the Python oracle (the C++ engine
-        # trusts its inputs; a CBP of 0 or a missing MQUANT value would
-        # otherwise serialize an UNDECODABLE stream that even the
-        # length-model == serializer assert cannot catch, since both
-        # count 0 bits for CBP 0)
-        cmask = coded != 0
-        bad_cbp = (luts.MTYPE_CBP[mtype] & cmask
-                   & ((cbp < 1) | (cbp > 63)))
-        if bad_cbp.any():
-            raise ValueError(
-                f"CBP out of range 1..63 on {int(bad_cbp.sum())} coded "
-                f"CBP-bearing MBs")
-        bad_mq = (luts.MTYPE_MQUANT[mtype] & cmask
-                  & ((quant_mb < 1) | (quant_mb > 31)))
-        if bad_mq.any():
-            raise ValueError(
-                f"MQUANT MTYPE without a valid 1..31 quant_mb on "
-                f"{int(bad_mq.sum())} MBs")
-        if ((gq < 1) | (gq > 31)).any():
-            raise ValueError("GQUANT out of range 1..31")
+        check_symbols(coded != 0, mtype, cbp, quant_mb, gq)
         perm = transmission_order(fmt).astype(np.int32)
         gn = np.ascontiguousarray(fmt.gob_numbers, np.int32)
         # capacity: worst case ~ every coefficient escapes; generous bound
@@ -331,7 +347,130 @@ class NativeBitIO:
         return frames
 
 
+#: the (S, T, ...) encoder outputs the batch serializer reads, in its
+#: argument order, with the dtype it reads each as (core.encoder's output
+#: dtypes; a bool array is read as uint8 in place)
+BATCH_ARRAYS = (("frame_coded", np.uint8), ("tr", np.int32),
+                ("gquant", np.int32), ("coded", np.uint8),
+                ("mtype", np.int32), ("mv", np.int32), ("cbp", np.int32),
+                ("levels8", np.int8), ("dc_intra", np.uint8),
+                ("quant_mb", np.int32), ("n_stuff", np.int32))
+#: bytes each stream's slot holds past its predicted length
+SLOT_SLACK = 8
+
+
+class Batch:
+    """A chunk made ready for p64_serialize_batch: its arrays in the
+    engine's dtypes, one output buffer with a slot per stream sized from
+    the device bit model, and what the engine reports per stream.
+
+      streams:   S
+      predicted: (S,) int64, sum over frames of `total_bits`
+      offsets:   (S + 1,) int64, stream s's slot is out[offsets[s]:
+                 offsets[s + 1]]
+      nbits:     (S,) int64, bits written (BatchSerializer.run)
+      errors:    (S, 4) int64, symbols out of range, counted as
+                 raise_symbol_errors takes them (BatchSerializer.run)
+    """
+
+    def __init__(self, args: list, arrays: list, predicted: np.ndarray):
+        self.streams = len(predicted)
+        self.predicted = predicted
+        self.offsets = np.zeros(self.streams + 1, np.int64)
+        np.cumsum((predicted + 7) // 8 + SLOT_SLACK, out=self.offsets[1:])
+        self.out = np.empty(int(self.offsets[-1]), np.uint8)
+        self.nbits = np.zeros(self.streams, np.int64)
+        self.errors = np.zeros((self.streams, 4), np.int64)
+        self._arrays = arrays          # the arrays `args` points into
+        self.args = args
+        self.tail = [_ptr(self.out), _ptr(self.offsets), _ptr(self.nbits),
+                     _ptr(self.errors)]
+
+    def check(self) -> None:
+        """Once every stream has run: raise ValueError for symbols out of
+        range (raise_symbol_errors), then AssertionError where a stream's
+        bit count differs from its `total_bits`."""
+        raise_symbol_errors(*(int(n) for n in self.errors.sum(axis=0)))
+        bad = np.flatnonzero(self.nbits != self.predicted)
+        if bad.size:
+            si = int(bad[0])
+            raise AssertionError(
+                f"stream {si}: serializer produced {int(self.nbits[si])} "
+                f"bits, device model predicted {int(self.predicted[si])} -- "
+                "length model and serializer have diverged")
+
+
+def _engine_array(a: np.ndarray, dtype) -> np.ndarray:
+    if a.dtype == np.bool_ and np.dtype(dtype).itemsize == 1:
+        a = a.view(np.uint8)
+    return np.ascontiguousarray(a, dtype)
+
+
+class BatchSerializer:
+    """Wraps libp64serialize.so (`csrc/serialize_batch.cpp`): a chunk's
+    stacked encoder outputs -> each stream's (bytes, nbits), with the bit
+    I/O engine's encoder tables.  `prepare` runs once per chunk on the
+    calling thread; `run` serializes a range of its streams and may run
+    on several threads at once, over disjoint ranges (ctypes releases the
+    GIL); `Batch.check` then raises for what the engine counted."""
+
+    def __init__(self, lib: C.CDLL, engine: NativeBitIO) -> None:
+        self._lib = lib
+        self._engine = engine
+        lib.p64_serialize_batch.restype = C.c_int64
+        lib.p64_serialize_batch.argtypes = (
+            [C.POINTER(_EncTables), C.c_int64, C.c_int32, C.c_int32, _P, _P,
+             C.c_int32] + [_P] * len(BATCH_ARRAYS)
+            + [C.c_int64, C.c_int64] + [_P] * 4)
+        self._perm = {fmt.name: transmission_order(fmt).astype(np.int32)
+                      for fmt in (CIF, QCIF)}
+        self._gn = {fmt.name: np.ascontiguousarray(fmt.gob_numbers, np.int32)
+                    for fmt in (CIF, QCIF)}
+
+    def prepare(self, fmt: Format, outputs: Mapping[str, np.ndarray]
+                ) -> Batch:
+        """outputs: the BATCH_ARRAYS and `total_bits` as (S, T, ...) host
+        arrays of `fmt`.  Raises ValueError on a shape the engine cannot
+        walk; sizes each stream's slot from its `total_bits`."""
+        arrays = [_engine_array(np.asarray(outputs[k]), dt)
+                  for k, dt in BATCH_ARRAYS]
+        total_bits = np.asarray(outputs["total_bits"])
+        s, t = total_bits.shape
+        m = fmt.num_mbs
+        want = dict(frame_coded=(), tr=(), n_stuff=(),
+                    gquant=(fmt.num_gobs,), coded=(m,), mtype=(m,),
+                    cbp=(m,), quant_mb=(m,), mv=(m, 2), levels8=(m, 6, 64),
+                    dc_intra=(m, 6))
+        for (k, _), a in zip(BATCH_ARRAYS, arrays):
+            if a.shape != (s, t, *want[k]):
+                raise ValueError(f"{k} of shape {a.shape}: the batch "
+                                 f"serializer needs {(s, t, *want[k])}")
+        args = [C.byref(self._engine._enc_t), t, m, fmt.num_gobs,
+                _ptr(self._gn[fmt.name]), _ptr(self._perm[fmt.name]),
+                ptype_value(fmt.is_cif)] + [_ptr(x) for x in arrays]
+        return Batch(args, arrays, total_bits.sum(axis=1, dtype=np.int64))
+
+    def run(self, batch: Batch, first: int,
+            last: int) -> List[Tuple[bytes, int]]:
+        """Serialize streams [first, last) of `batch`: their (bytes,
+        nbits), and their bit and error counts into the batch.  A stream
+        that outgrew its slot returns the bytes its slot holds; its bit
+        count then differs from batch.predicted."""
+        if not 0 <= first <= last <= batch.streams:
+            raise ValueError(f"streams [{first}, {last}) outside the "
+                             f"batch's {batch.streams}")
+        self._lib.p64_serialize_batch(*batch.args, first, last, *batch.tail)
+        got = []
+        for si in range(first, last):
+            n = int(batch.nbits[si])
+            start = int(batch.offsets[si])
+            stop = min(start + (n + 7) // 8, int(batch.offsets[si + 1]))
+            got.append((batch.out[start:stop].tobytes(), n))
+        return got
+
+
 _cached: Optional[NativeBitIO] = None
+_cached_batch: Optional[BatchSerializer] = None
 _load_lock = threading.Lock()
 
 
@@ -348,3 +487,18 @@ def load() -> NativeBitIO:
         if _cached is None:
             _cached = NativeBitIO(_build.open_library(_build.build_native()))
         return _cached
+
+
+def load_batch() -> BatchSerializer:
+    """Build (if needed) and load the batch serializer, once per process,
+    with the engine of load().  Raises if either cannot be built or
+    loaded."""
+    global _cached_batch
+    if _cached_batch is not None:
+        return _cached_batch
+    engine = load()
+    with _load_lock:
+        if _cached_batch is None:
+            _cached_batch = BatchSerializer(
+                _build.open_library(_build.build_batch_serializer()), engine)
+        return _cached_batch

@@ -215,7 +215,7 @@ def test_build_failure_is_not_retried(monkeypatch):
     def engine_gone():
         raise _build.BuildError("g++ not found")
 
-    monkeypatch.setattr(enc, "load", engine_gone)
+    monkeypatch.setattr(enc, "load_batch", engine_gone)
     with pytest.raises(_build.BuildError, match="g\\+\\+ not found"):
         batch_encode.encode_resilient(cfg, _frames(2, 1), CPU, retries=2)
 

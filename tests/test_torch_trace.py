@@ -138,7 +138,25 @@ def test_counters_of_the_jobs(traced):
     mbs = STREAMS * FRAMES * QCIF.num_mbs
     # every copy stays on the CPU: no copy counter moves
     assert traced[5] == {"p64.encode.macroblocks": mbs,
+                         "p64.serialize.streams": STREAMS,
                          "p64.decode.macroblocks": mbs}
+
+
+@pytest.mark.parametrize("streams", [1, 3])
+def test_batch_serializer_counts_its_streams(streams):
+    """A traced job's p64.serialize.streams equals its streams, however
+    they are chunked; untraced, and in a decode, the counter stays."""
+    batch = {k: v[:streams] for k, v in _batch().items()}
+    mesh = dm.make_mesh(devices=[CPU])
+    before = trace.counters().get("p64.serialize.streams", 0)
+    encode_resilient(_cfg(), batch, mesh, chunk=CHUNK)
+    assert trace.counters().get("p64.serialize.streams", 0) == before
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = encode_resilient(_cfg(), batch, mesh, chunk=CHUNK)
+        middle = trace.counters()["p64.serialize.streams"]
+        _decode([d for d, _ in got])
+    assert middle - before == streams
+    assert trace.counters()["p64.serialize.streams"] == middle
 
 
 def test_spans_are_on_the_profiler_clock(traced):
