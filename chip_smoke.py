@@ -134,11 +134,13 @@ run with a non-zero exit and no result line:
                  frame of every shard, and one program built for the 8
                  equal shard keys, kept for the second call
  22. serialize -- the headline content encoded on the card at q=10 and
-                 at 1,024 kbit/s rate control (p = 16), 128 CIF streams x
-                 32 frames each, its symbol outputs copied to pinned host
-                 memory (core.encoder.outputs_to_host); the batch
-                 serializer (core.encoder.serialize_streams) over them
-                 equals the per-stream native serialize_sequence over
+                 at 1,024 kbit/s rate control (p = 16), and textured
+                 content (noise 64) at 1,920 kbit/s (p = 30) with three
+                 MQUANT segments a GOB, which has to write MQUANT MBs; 128
+                 CIF streams x 32 frames each, its symbol outputs copied to
+                 pinned host memory (core.encoder.outputs_to_host); the
+                 batch serializer (core.encoder.serialize_streams) over
+                 them equals the per-stream native serialize_sequence over
                  outputs_to_symbols, stream for stream, and the device bit
                  model; finalize ms (pinned copies, wait, serialize) and the
                  per-stream path's ms
@@ -217,6 +219,10 @@ DRYRUN_SHARDS, DRYRUN_BITS, DRYRUN_CODED = 8, 798_196, 8
 #: the serialize phase's rate-controlled configuration (port_bench's
 #: cif_rc_p16: p = 16, CIF at 30 Hz)
 SERIALIZE_RC_BITS, SERIALIZE_RC_FPS = 1_024_000, 30
+#: its MQUANT configuration (port_bench's cif_rc_p30_mq3: p = 30, three
+#: MQUANT segments a GOB) and the texture of its content
+SERIALIZE_MQ_BITS, SERIALIZE_MQ_SEGMENTS, SERIALIZE_MQ_NOISE = \
+    1_920_000, 3, 64
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -878,10 +884,12 @@ def batch_phase(dev, frames, datas, card: str) -> int:
 
 def serialize_phase(dev, frames, card: str) -> dict:
     """Phase 22: for the headline configuration and the p = 16 rate
-    configuration, encode `frames` (numpy, S x T CIF) on `dev`, copy the
-    symbol outputs to pinned host memory, and hold the batch serializer
-    over them to the per-stream engine over outputs_to_symbols.  Returns
-    per configuration the finalize and per-stream ms and the bit total."""
+    configuration, encode `frames` (numpy, S x T CIF) on `dev`, and for
+    the p = 30 MQUANT configuration the same shape of textured content;
+    copy the symbol outputs to pinned host memory, and hold the batch
+    serializer over them to the per-stream engine over outputs_to_symbols.
+    The MQUANT configuration has to write MQUANT MBs.  Returns per
+    configuration the finalize and per-stream ms and the bit total."""
     import dataclasses
 
     import torch
@@ -889,16 +897,27 @@ def serialize_phase(dev, frames, card: str) -> dict:
     from p64tpu_torch.control.ratecontrol import RateConfig
     from p64tpu_torch.core import encoder as enc
     from p64tpu_torch.entropy.encode import serialize_sequence
+    from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.spec.luts import MTYPE_MQUANT
+    from p64tpu_torch.tools.bench import make_content
 
     base = headline_cfg(emit_recon=False)
-    configs = {"cif_q10": base, "cif_rc_p16": dataclasses.replace(
-        base, rate=RateConfig(bit_rate=SERIALIZE_RC_BITS,
-                              frame_rate=SERIALIZE_RC_FPS))}
-    dev_frames = {k: torch.as_tensor(v, device=dev) for k, v in frames.items()}
     n_streams, n_frames = frames["y"].shape[:2]
+    configs = {
+        "cif_q10": (base, frames),
+        "cif_rc_p16": (dataclasses.replace(base, rate=RateConfig(
+            bit_rate=SERIALIZE_RC_BITS, frame_rate=SERIALIZE_RC_FPS)),
+            frames),
+        "cif_rc_p30_mq3": (dataclasses.replace(base, rate=RateConfig(
+            bit_rate=SERIALIZE_MQ_BITS, frame_rate=SERIALIZE_RC_FPS,
+            mquant_segments=SERIALIZE_MQ_SEGMENTS)),
+            make_content(CIF, n_streams, n_frames, SERIALIZE_MQ_NOISE))}
     got = {}
-    for name, cfg in configs.items():
+    for name, (cfg, content) in configs.items():
+        dev_frames = {k: torch.as_tensor(v, device=dev)
+                      for k, v in content.items()}
         _, outputs = enc.encode_sequence(cfg, dev_frames, device=dev)
+        del dev_frames
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         host, event = enc.outputs_to_host(outputs)
@@ -923,14 +942,20 @@ def serialize_phase(dev, frames, card: str) -> dict:
             raise AssertionError(f"serialize {name}: {bits} bits != "
                                  f"{HEADLINE_BITS}")
         coded = host["frame_coded"].numpy()
+        mquant = int((MTYPE_MQUANT[host["mtype"].numpy()]
+                      & host["coded"].numpy().astype(bool)).sum())
+        if cfg.rate.mquant_segments > 1 and not mquant:
+            raise AssertionError(f"serialize {name}: no MQUANT MB written")
         got[name] = dict(finalize_ms=(t2 - t0) * 1e3,
                          copy_ms=(t1 - t0) * 1e3,
                          serialize_ms=(t2 - t1) * 1e3,
-                         per_stream_ms=(t3 - t2) * 1e3, bits=bits)
+                         per_stream_ms=(t3 - t2) * 1e3, bits=bits,
+                         mquant_mbs=mquant)
         log(f"[serialize] {name} {n_streams}x{n_frames} CIF: batch "
             f"serializer == per-stream engine on every stream, {bits} bits "
             f"== device model ({int(coded.sum())} coded frames, "
-            f"{int(host['n_stuff'].numpy().sum())} stuffing codes); "
+            f"{int(host['n_stuff'].numpy().sum())} stuffing codes, "
+            f"{mquant} MQUANT MBs); "
             f"finalize {got[name]['finalize_ms']:.1f} ms (pinned copies and "
             f"wait {got[name]['copy_ms']:.1f}, serialize "
             f"{got[name]['serialize_ms']:.1f}), per-stream path "

@@ -671,17 +671,20 @@ def serialize_streams(cfg: EncoderConfig,
     the engine (host arrays in its dtypes, the slots), then
     `p64.fan.serialize`, the engine over ranges of streams fanned across
     threads (utils.fan_map; ctypes releases the GIL), which also checks
-    the symbols it writes.  Outputs as outputs_to_symbols takes them.
+    the symbols it writes.  Counters of what the rate control did:
+    `p64.rate.mquant_mbs`, the MBs written with an MQUANT MTYPE (the
+    engine counts them per stream), and `p64.rate.stuffing_codes`, the sum
+    of `n_stuff`.  Outputs as outputs_to_symbols takes them.
     Raises ValueError on symbols out of range (the messages of the
     per-stream engine's checks) and AssertionError where a stream's bit
     count differs from its `total_bits`: the device length model and the
     serializer have diverged."""
     engine = load_batch()   # build/load the engine once before fanning out
     with trace.span("p64.encode.symbols"):
-        batch = engine.prepare(cfg.fmt, {
-            k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
-                                                       torch.Tensor)
-                else np.asarray(outputs[k])) for k in SYMBOL_KEYS})
+        host = {k: (outputs[k].cpu().numpy()
+                    if isinstance(outputs[k], torch.Tensor)
+                    else np.asarray(outputs[k])) for k in SYMBOL_KEYS}
+        batch = engine.prepare(cfg.fmt, host)
     n = batch.streams
     trace.count("p64.serialize.streams", n)
     step = max(1, -(-n // (os.cpu_count() or 1)))
@@ -689,6 +692,10 @@ def serialize_streams(cfg: EncoderConfig,
                     [(a, min(a + step, n)) for a in range(0, n, step)],
                     name="serialize")
     batch.check()
+    if trace.enabled():
+        trace.count("p64.rate.mquant_mbs", int(batch.mquant_mbs.sum()))
+        trace.count("p64.rate.stuffing_codes",
+                    int(host["n_stuff"].sum(dtype=np.int64)))
     return [r for part in parts for r in part]
 
 

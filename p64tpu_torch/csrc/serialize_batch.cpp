@@ -30,6 +30,9 @@
 // MTYPE or MVD lies outside the code tables.  It reads no table out of
 // range: such an MB's codes are left out, and the caller raises.
 //
+// It also counts, per stream, the MBs it writes with an MQUANT MTYPE: the
+// rate control's mid-GOB quantizer changes.
+//
 // Build: g++ -O3 -Wall -Wextra -fPIC -std=c++17 -shared
 //            -o libp64serialize.so serialize_batch.cpp
 
@@ -154,8 +157,9 @@ enum { P64_BAD_CBP, P64_BAD_MQUANT, P64_BAD_GQUANT, P64_BAD_CODE,
 // frame; perm maps transmission index -> raster.  Stream s writes its
 // bytes at out + offsets[s], at most offsets[s + 1] - offsets[s] of them,
 // its bit count to nbits[s] and its symbol error counts to
-// errors[s * P64_SYM_ERRORS ...].  Returns the number of streams of the
-// range that outgrew their slot.
+// errors[s * P64_SYM_ERRORS ...] and the MBs it wrote with an MQUANT MTYPE
+// to mquant_mbs[s].  Returns the number of streams of the range that
+// outgrew their slot.
 int64_t p64_serialize_batch(
     const EncTables* t,
     int64_t n_frames, int32_t n_mb, int32_t n_gob,
@@ -176,12 +180,14 @@ int64_t p64_serialize_batch(
     int64_t first, int64_t last,
     uint8_t* out, const int64_t* offsets,  // [S + 1]
     int64_t* nbits,                        // [S]
-    int64_t* errors) {                     // [S * P64_SYM_ERRORS]
+    int64_t* errors,                       // [S * P64_SYM_ERRORS]
+    int64_t* mquant_mbs) {                 // [S]
   int64_t overflowed = 0;
   for (int64_t s = first; s < last; ++s) {
     WordWriter w{out + offsets[s], offsets[s + 1] - offsets[s], 0, 0, 0, 0};
     int64_t* err = errors + s * P64_SYM_ERRORS;
     for (int k = 0; k < P64_SYM_ERRORS; ++k) err[k] = 0;
+    int64_t n_mquant = 0;
     for (int64_t f = s * n_frames; f < (s + 1) * n_frames; ++f) {
       if (!frame_coded[f]) continue;
       const int64_t mb0 = f * n_mb;
@@ -225,6 +231,7 @@ int64_t p64_serialize_batch(
             int q = fquant[raster];
             err[P64_BAD_MQUANT] += q < 1 || q > 31;
             ww_put(&w, (uint32_t)q, 5);
+            ++n_mquant;
           }
           if (fl[2]) {  // MC -> MVD pair
             int px = 0, py = 0;
@@ -272,6 +279,7 @@ int64_t p64_serialize_batch(
       for (int32_t k = 0; k < n_stuff[f]; ++k) ww_put(&w, 0xFu, 11);
     }
     nbits[s] = ww_bits(&w);
+    mquant_mbs[s] = n_mquant;
     ww_finish(&w);
     overflowed += w.overflow;
   }

@@ -371,6 +371,8 @@ class Batch:
       nbits:     (S,) int64, bits written (BatchSerializer.run)
       errors:    (S, 4) int64, symbols out of range, counted as
                  raise_symbol_errors takes them (BatchSerializer.run)
+      mquant_mbs: (S,) int64, MBs written with an MQUANT MTYPE
+                 (BatchSerializer.run)
     """
 
     def __init__(self, args: list, arrays: list, predicted: np.ndarray):
@@ -381,10 +383,11 @@ class Batch:
         self.out = np.empty(int(self.offsets[-1]), np.uint8)
         self.nbits = np.zeros(self.streams, np.int64)
         self.errors = np.zeros((self.streams, 4), np.int64)
+        self.mquant_mbs = np.zeros(self.streams, np.int64)
         self._arrays = arrays          # the arrays `args` points into
         self.args = args
         self.tail = [_ptr(self.out), _ptr(self.offsets), _ptr(self.nbits),
-                     _ptr(self.errors)]
+                     _ptr(self.errors), _ptr(self.mquant_mbs)]
 
     def check(self) -> None:
         """Once every stream has run: raise ValueError for symbols out of
@@ -421,7 +424,7 @@ class BatchSerializer:
         lib.p64_serialize_batch.argtypes = (
             [C.POINTER(_EncTables), C.c_int64, C.c_int32, C.c_int32, _P, _P,
              C.c_int32] + [_P] * len(BATCH_ARRAYS)
-            + [C.c_int64, C.c_int64] + [_P] * 4)
+            + [C.c_int64, C.c_int64] + [_P] * 5)
         self._perm = {fmt.name: transmission_order(fmt).astype(np.int32)
                       for fmt in (CIF, QCIF)}
         self._gn = {fmt.name: np.ascontiguousarray(fmt.gob_numbers, np.int32)
@@ -453,9 +456,9 @@ class BatchSerializer:
     def run(self, batch: Batch, first: int,
             last: int) -> List[Tuple[bytes, int]]:
         """Serialize streams [first, last) of `batch`: their (bytes,
-        nbits), and their bit and error counts into the batch.  A stream
-        that outgrew its slot returns the bytes its slot holds; its bit
-        count then differs from batch.predicted."""
+        nbits), and their bit, error and MQUANT counts into the batch.  A
+        stream that outgrew its slot returns the bytes its slot holds; its
+        bit count then differs from batch.predicted."""
         if not 0 <= first <= last <= batch.streams:
             raise ValueError(f"streams [{first}, {last}) outside the "
                              f"batch's {batch.streams}")
