@@ -144,6 +144,22 @@ run with a non-zero exit and no result line:
                  outputs_to_symbols, stream for stream, and the device bit
                  model; finalize ms (pinned copies, wait, serialize) and the
                  per-stream path's ms
+ 23. ratechain -- the rate-control chain's kernels (csrc/rate_chain.cu,
+                 kernels.rate_chain_cuda): ptxas figures; on seeded random
+                 chain inputs (1, 2, 3, 4, 33 and 40 MQUANT segments,
+                 buffers at QUANT 1 and 31) equal to the plain chain
+                 (core.encoder._gob_chain) on the card; then for the p = 16
+                 and the p = 30 three-segment configurations (their
+                 benchmark content) at 32 and 128 CIF streams x 8 frames
+                 from frame 0, the eager encode through the kernels equal
+                 to the eager encode through the plain chain, and the
+                 captured program's equal to both, in every output and the
+                 final state, with three chain launches a replay; the
+                 chain of frame 1 timed by CUDA events, each kernel and the
+                 whole, beside its bytes bound and the plain chain; the
+                 chain's launches by path, the main path's (the captured
+                 p = 30 program at 32 streams) on their own, and the
+                 largest difference from the plain chain
 
 From phase 4 on, every encode_sequence and reconstruct_seq on the card
 replays a captured program (core.graphs): the pins, the headline, the
@@ -223,6 +239,10 @@ SERIALIZE_RC_BITS, SERIALIZE_RC_FPS = 1_024_000, 30
 #: MQUANT segments a GOB) and the texture of its content
 SERIALIZE_MQ_BITS, SERIALIZE_MQ_SEGMENTS, SERIALIZE_MQ_NOISE = \
     1_920_000, 3, 64
+#: the rate-chain phase's streams and frames, and the MQUANT segment counts
+#: of its random inputs
+CHAIN_STREAMS, CHAIN_FRAMES = (32, 128), 8
+CHAIN_SEGMENTS = (1, 2, 3, 4, 33, 40)
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -439,6 +459,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds of one fn() call: `reps` calls captured in one
+    CUDA graph, the graph replayed (cuda_ms), over reps.  Unlike cuda_ms
+    of fn itself, no host launch cost between the calls is counted."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, 5) / reps
+    del graph
+    return ms
 
 
 def check_fused(kernel, plain, what: str) -> int:
@@ -962,6 +1001,195 @@ def serialize_phase(dev, frames, card: str) -> dict:
             f"{got[name]['per_stream_ms']:.1f} ms, on {card}")
         del outputs, host
     return got
+
+
+def chain_inputs(seed: int, streams: int, gobs: int):
+    """Seeded random inputs of the rate-control chain as numpy arrays
+    (buffer, coefs, intra, mc, fil, mv, in `core.encoder._gob_chain`'s
+    dtypes): Laplacian coefficients that shrink along the zigzag, intra, MC
+    and filter decisions (filter only with MC), MVs on MC MBs; the last two
+    streams' buffers give QUANT 1 and 31."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mbs = (streams, gobs, 33)
+    decay = np.exp(-np.arange(64) / 12.0)
+    coefs = np.round(rng.laplace(0, 12.0, mbs + (6, 64)) * decay * 4)
+    intra = rng.random(mbs) < 0.1
+    mc = ~intra & (rng.random(mbs) < 0.5)
+    fil = mc & (rng.random(mbs) < 0.5)
+    mv = np.where(mc[..., None], rng.integers(-15, 16, mbs + (2,)), 0)
+    coefs[..., 0] = np.where(intra[..., None],
+                             rng.integers(0, 2040, mbs + (6,)), coefs[..., 0])
+    buffer = rng.integers(0, 40_000, (streams,))
+    buffer[-2:] = 0, 2_000_000
+    return (buffer.astype(np.int32), coefs.astype(np.int32), intra, mc, fil,
+            mv.astype(np.int32))
+
+
+#: the outputs of the rate-control chain, in order
+CHAIN_OUTPUTS = ("levels", "cbp", "coded", "mtype", "gquant", "quant",
+                 "bits")
+
+
+def _max_abs_diff(got: dict, want: dict) -> int:
+    """The largest |got - want| over the keys of `want` (shapes equal)."""
+    import torch
+
+    return max(int((got[k].to(torch.float64) - w.to(torch.float64)).abs()
+                   .max()) if w.numel() else 0 for k, w in want.items())
+
+
+def rate_chain_phase(dev, card: str) -> dict:
+    """Phase 23 (see the module docstring).  Returns "figures": per
+    configuration and stream count the kernels' and the plain chain's ms
+    and the bound; "launches_by_path": chain launches per path, earlier
+    phases included; "main_path_launches": the launches of the captured
+    program's 8 replays at the p = 30 configuration and 32 streams;
+    "max_abs_err": the largest difference of the kernels' outputs from the
+    plain chain's and the captured program's."""
+    import dataclasses
+
+    import torch
+
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.core import graphs
+    from p64tpu_torch.kernels import _build
+    from p64tpu_torch.kernels import rate_chain_cuda as rc
+    from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.spec.luts import MTYPE_MQUANT
+    from p64tpu_torch.tools.bench import make_content
+
+    t_phase = time.perf_counter()
+    by_path = {"earlier_phases": rc.LAUNCHES}
+    max_err = 0
+    rc.LAUNCHES = 0
+    _build.load("rate_chain")
+    ptxas = ptxas_summary(_build.ptxas_report("rate_chain"))
+    for name, f in ptxas.items():
+        log(f"[ratechain] ptxas {name}: {f['registers']} registers, "
+            f"{f['smem_bytes']} bytes static shared memory, "
+            f"{f['spill_bytes']} bytes spilled")
+
+    base = headline_cfg(emit_recon=False)
+    for nseg in CHAIN_SEGMENTS:
+        cfg = dataclasses.replace(base, rate=RateConfig(
+            bit_rate=SERIALIZE_MQ_BITS, frame_rate=SERIALIZE_RC_FPS,
+            mquant_segments=nseg))
+        args = [torch.as_tensor(x, device=dev)
+                for x in chain_inputs(nseg, 16, CIF.num_gobs)]
+        got = dict(zip(CHAIN_OUTPUTS, rc.rate_chain_cuda(cfg.rate, *args)))
+        want = dict(zip(CHAIN_OUTPUTS, enc._gob_chain(cfg, *args)))
+        max_err = max(max_err, _max_abs_diff(got, want))
+        _equal_or_raise(f"rate chain, random, {nseg} segments", got, want)
+    by_path["random"] = rc.LAUNCHES
+    log(f"[ratechain] random inputs (16 CIF streams, segments "
+        f"{list(CHAIN_SEGMENTS)}, buffers at QUANT 1 and 31): kernels == "
+        "plain chain")
+
+    configs = {
+        "cif_rc_p16": (RateConfig(bit_rate=SERIALIZE_RC_BITS,
+                                  frame_rate=SERIALIZE_RC_FPS), 5),
+        "cif_rc_p30_mq3": (RateConfig(
+            bit_rate=SERIALIZE_MQ_BITS, frame_rate=SERIALIZE_RC_FPS,
+            mquant_segments=SERIALIZE_MQ_SEGMENTS), SERIALIZE_MQ_NOISE)}
+    figures = {}
+    by_path.update(eager=0, graph=0, timing=0)
+    main_path = None
+    for name, (rate, noise) in configs.items():
+        cfg = dataclasses.replace(base, rate=rate)
+        for n_streams in CHAIN_STREAMS:
+            frames = {k: torch.as_tensor(v, device=dev) for k, v in
+                      make_content(CIF, n_streams, CHAIN_FRAMES,
+                                   noise).items()}
+            recorded = []
+
+            def record(*a):
+                recorded.append(a[1:])
+                return enc.rate_chain_cuda(a[0].rate, *a[1:])
+
+            rc.LAUNCHES = 0
+            orig = enc.gob_chain
+            try:
+                enc.gob_chain = record
+                state_k, out_k = enc.encode_sequence_eager(cfg, frames,
+                                                           device=dev)
+                enc.gob_chain = enc._gob_chain
+                state_p, out_p = enc.encode_sequence_eager(cfg, frames,
+                                                           device=dev)
+            finally:
+                enc.gob_chain = orig
+            by_path["eager"] += rc.LAUNCHES
+            rc.LAUNCHES = 0
+            state_g, out_g = enc.encode_sequence_graphed(
+                cfg, frames, device=dev, cache=graphs.ProgramCache(1))
+            torch.cuda.synchronize(dev)
+            replayed = rc.LAUNCHES
+            by_path["graph"] += replayed
+            if (name, n_streams) == ("cif_rc_p30_mq3", CHAIN_STREAMS[0]):
+                main_path = replayed
+            if replayed != len(rc.KERNELS) * CHAIN_FRAMES:
+                raise AssertionError(
+                    f"rate chain {name} x{n_streams}: {replayed} chain "
+                    f"launches over {CHAIN_FRAMES} replays")
+            for what, (st, out) in (("plain", (state_p, out_p)),
+                                    ("graph", (state_g, out_g))):
+                max_err = max(max_err, _max_abs_diff(
+                    {**state_k, **out_k}, {**st, **out}))
+                _equal_or_raise(f"rate chain {name} x{n_streams} kernels vs "
+                                f"{what}", {**state_k, **out_k},
+                                {**st, **out})
+            coded = int(out_k["frame_coded"].sum())
+            mquant = int((torch.as_tensor(MTYPE_MQUANT, device=dev)[
+                out_k["mtype"].long()] & out_k["coded"]).sum())
+            args = recorded[1]
+            chain = lambda: rc.rate_chain_cuda(cfg.rate, *args)  # noqa: E731
+            buffer, coefs, intra, mc, fil, mv = args
+            rc.LAUNCHES = 0
+            table = rc.price(coefs, intra)
+            walked = rc.walk(cfg.rate, buffer, table, intra, mc, fil, mv)
+            ms = {
+                "chain": min(graph_ms(chain, 20) for _ in range(2)),
+                "price": min(graph_ms(lambda: rc.price(coefs, intra), 20)
+                             for _ in range(2)),
+                "walk": min(graph_ms(lambda: rc.walk(
+                    cfg.rate, buffer, table, intra, mc, fil, mv), 20)
+                    for _ in range(2)),
+                "emit": min(graph_ms(lambda: rc.emit(
+                    coefs, intra, walked[1], walked[6]), 20)
+                    for _ in range(2)),
+                "plain": min(graph_ms(lambda: enc._gob_chain(cfg, *args), 1)
+                             for _ in range(2)),
+                "plain_eager": cuda_ms(lambda: enc._gob_chain(cfg, *args),
+                                       3)}
+            by_path["timing"] += rc.LAUNCHES
+            n_mb = coefs.numel() // (6 * 64)
+            # coefficients read and levels written once, the decisions and
+            # MVs read, the per-MB and per-GOB outputs written
+            nbytes = (2 * coefs.nbytes + n_mb * (3 + 8) + n_mb * 13
+                      + buffer.numel() * (4 + 8 * CIF.num_gobs))
+            bound_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+            figures[(name, n_streams)] = dict(ms, bound_ms=bound_ms)
+            log(f"[ratechain] {name} {n_streams}x{CHAIN_FRAMES} CIF: eager "
+                f"kernels == eager plain chain == captured program in every "
+                f"output and the state ({coded} coded frames, {mquant} "
+                f"MQUANT MBs), {replayed} chain launches over "
+                f"{CHAIN_FRAMES} replays; frame 1's chain: kernels "
+                f"{ms['chain']:.4f} ms (price {ms['price']:.4f}, walk "
+                f"{ms['walk']:.4f}, emit {ms['emit']:.4f}), plain chain "
+                f"{ms['plain']:.3f} ms (eager, launched from the host: "
+                f"{ms['plain_eager']:.3f} ms), device time of calls "
+                f"captured in a graph; bound {bound_ms:.4f} ms ({nbytes} "
+                f"bytes), {bound_ms / ms['chain']:.1%} of it, on {card}")
+            del frames, out_k, out_p, out_g, recorded, args, table, walked
+    log(f"[ratechain] chain launches by path {by_path}, main path (the "
+        f"captured p = 30 program, {CHAIN_STREAMS[0]} streams) {main_path} "
+        f"over {CHAIN_FRAMES} replays, max abs err {max_err}")
+    log(f"[ratechain] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"figures": figures, "launches_by_path": by_path,
+            "main_path_launches": main_path, "max_abs_err": max_err,
+            "ptxas": ptxas}
 
 
 def checkpoint_phase(dev, dev_frames, outputs, card: str) -> int:
@@ -1878,7 +2106,10 @@ def main() -> int:
 
     # 22. the batch serializer on the card's pinned outputs
     serialize_phase(dev, frames, card)
-    log(f"[done] all 22 phases passed in {time.perf_counter() - t_start:.1f}"
+
+    # 23. the rate-control chain's kernels against the plain chain
+    chain = rate_chain_phase(dev, card)
+    log(f"[done] all 23 phases passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
     log(card)
@@ -1901,6 +2132,18 @@ def main() -> int:
             "launches_by_path": {"gate": map_launches[name],
                                  "fuzz": fuzz[name]}, **maps[name],
             "library_ms": None, "ptxas": ptxas[name]})
+    at32 = chain["figures"][("cif_rc_p30_mq3", CHAIN_STREAMS[0])]
+    kernels.append({
+        "name": "rate_chain", "route": "cuda",
+        "source": "p64tpu_torch/csrc/rate_chain.cu", "replaces": None,
+        "launches": sum(chain["launches_by_path"].values()),
+        "main_path_launches": chain["main_path_launches"],
+        "launches_by_path": chain["launches_by_path"],
+        "max_abs_err": chain["max_abs_err"],
+        "ms": at32["chain"], "plain_ms": at32["plain"],
+        "bound_ms": at32["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ptxas": chain["ptxas"], "by_config": {
+            f"{n} x{s}": v for (n, s), v in chain["figures"].items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,9 +8,11 @@ streams at once:
     3. MC prediction + loop filter          (core.predict)
     4. residual -> integer DCT              (kernels.dct)
     5. quantize, CBP/MTYPE/coded masks and the EXACT bit cost of each GOB:
-       every GOB at once at a fixed quantizer; under rate control a host
-       loop over the GOBs in transmission order, because GOB g's bits set
-       GOB g+1's quantizer (optionally with mid-GOB MQUANT segments)
+       every GOB at once at a fixed quantizer; under rate control the GOBs
+       in transmission order, because GOB g's bits set GOB g+1's quantizer
+       (optionally with mid-GOB MQUANT segments): on a CUDA device three
+       kernels (kernels.rate_chain_cuda), on the CPU a host loop over the
+       GOBs, the plain version
                                             (kernels.quant, entropy.lengths,
                                              control.ratecontrol)
     6. local reconstruction                 (core.reconstruct)
@@ -48,6 +50,7 @@ from ..spec.constants import (
     MBS_PER_GOB,
     Format,
 )
+from ..spec import luts
 from ..spec.tables import MTYPE_BY_NAME
 from ..control.decisions import DecisionConfig, decide_modes
 from ..control.ratecontrol import (
@@ -64,6 +67,7 @@ from ..entropy.encode import FrameSymbols
 from ..kernels.dct import fdct8x8_zz
 from ..kernels.me import full_search
 from ..kernels.quant import quantize_zz
+from ..kernels.rate_chain_cuda import rate_chain_cuda
 from .. import trace
 from ..native import load_batch
 from ..utils import device_const, fan_map
@@ -172,15 +176,6 @@ def state_to_numpy(state: State) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-#: base MTYPE -> its MQUANT variant (identity where none exists; only
-#: coefficient-bearing types can carry MQUANT, per the H.261 MTYPE table)
-_MQ_UPGRADE = np.arange(len(MTYPE_BY_NAME), dtype=np.int32)
-for _base, _mq in (("intra", "intra_mquant"), ("inter", "inter_mquant"),
-                   ("inter_mc_coef", "inter_mc_mquant"),
-                   ("inter_fil_coef", "inter_fil_mquant")):
-    _MQ_UPGRADE[_MT[_base]] = _MT[_mq]
-
-
 def _mtype_from_flags(intra, use_mc, fil, has_coef):
     mt = torch.full(intra.shape, _MT["inter"], dtype=torch.int32,
                     device=intra.device)
@@ -234,7 +229,7 @@ def _gob_mquant(cfg: EncoderConfig, buffer, coefs_g, intra_g, mc_g, fil_g,
     seg_oh = seg_id[None, :] == torch.arange(nseg, device=dev)[:, None]
     q0 = gob_quant(rate, buffer)                               # (S,)
     mtype_len = device_const(lengths.MTYPE_LEN, dev)
-    mq_up = device_const(_MQ_UPGRADE, dev)
+    mq_up = device_const(luts.MQ_UPGRADE, dev)
 
     def model_bits(q_mb):
         """Per-MB modeled bits at an (S, 33) quantizer, plus the
@@ -306,7 +301,8 @@ def _gob_chain(cfg: EncoderConfig, buffer, coefs_t, intra_t, mc_t, fil_t,
                mv_t):
     """Rate-controlled GOBs in transmission order: GOB g's bits feed GOB
     g+1's quantizer, so this is a host loop over the GOBs (the reference's
-    `lax.scan`) carrying each stream's own (S,) buffer.
+    `lax.scan`) carrying each stream's own (S,) buffer.  The plain version
+    of the chain's kernels (gob_chain).
 
     Returns (levels, cbp, coded, mtype, gquant, quant, bits), each stacked
     as (S, nGOB, ...)."""
@@ -326,6 +322,20 @@ def _gob_chain(cfg: EncoderConfig, buffer, coefs_t, intra_t, mc_t, fil_t,
         buffer = buffer + bits
         outs.append((levels, cbp, coded, mtype, q, quant_mb, bits))
     return tuple(torch.stack(z, dim=1) for z in zip(*outs))
+
+
+def gob_chain(cfg: EncoderConfig, buffer, coefs_t, intra_t, mc_t, fil_t,
+              mv_t):
+    """The rate-controlled GOB chain of one picture of every stream, as
+    `_gob_chain` takes and returns it.  CUDA tensors run the chain's kernels
+    (kernels.rate_chain_cuda, which raises if it cannot launch), CPU
+    tensors the plain `_gob_chain`."""
+    if buffer.is_cuda:
+        return rate_chain_cuda(cfg.rate, buffer, coefs_t, intra_t, mc_t,
+                               fil_t, mv_t)
+    if buffer.device.type != "cpu":
+        raise ValueError(f"gob_chain: no path for device {buffer.device}")
+    return _gob_chain(cfg, buffer, coefs_t, intra_t, mc_t, fil_t, mv_t)
 
 
 def _encode_picture(cfg: EncoderConfig, state: State, cur_y: torch.Tensor,
@@ -384,9 +394,9 @@ def _encode_picture(cfg: EncoderConfig, state: State, cur_y: torch.Tensor,
     if cfg.rate.enabled:
         # ---- per-GOB rate-control chain (transmission order) ----
         levels_t, cbp_t, coded_t, mtype_t, gquant, quant_t, gob_bits = (
-            _gob_chain(cfg, state["buffer"], to_gob_order(fmt, coefs),
-                       to_gob_order(fmt, intra), to_gob_order(fmt, use_mc),
-                       to_gob_order(fmt, fil), to_gob_order(fmt, mv)))
+            gob_chain(cfg, state["buffer"], to_gob_order(fmt, coefs),
+                      to_gob_order(fmt, intra), to_gob_order(fmt, use_mc),
+                      to_gob_order(fmt, fil), to_gob_order(fmt, mv)))
     else:
         # ---- every GOB at once, in transmission order (fixed quantizer) --
         ngob = fmt.num_gobs

@@ -43,11 +43,16 @@ package; the entry points (`core.encoder.encode_sequence`,
 `core.decoder.reconstruct_seq`) come here only on a CUDA device.
 
 Launch accounting: `kernels.me_cuda.LAUNCHES` counts the SAD-search
-kernel's host launches, and a replay makes none.  `capture` records how
-many launches the captured region made, and every replay adds that many.
-The launches of the warm-up and of the capture call itself are the
-program's build, as `jax.jit`'s trace and compile are, and are taken back
-out: the count stays one per frame encoded.
+kernel's host launches, `kernels.rate_chain_cuda.LAUNCHES` the rate-control
+chain's and its `GOBS` the (stream, GOB) pairs the chain's walk carried; a
+replay makes no host launch.  `capture` records how much each count grew
+over the captured region, and every replay adds that much.  The counts of
+the warm-up and of the capture call itself are the program's build, as
+`jax.jit`'s trace and compile are, and are taken back out: the SAD count
+stays one per frame encoded.  While tracing is on, a replay of a step whose
+chain is the kernels also adds its (stream, GOB) pairs to the counter
+`p64.rate.chain_kernel_gobs`: no span goes inside the captured step, so the
+host counts what the replay ran.
 
 Spans (`trace`, on the host): `p64.graphs.build` around a build on a
 cache miss, `p64.graphs.replays` around `Program.run`'s queued replays and
@@ -65,7 +70,7 @@ from typing import Callable, Dict, Hashable, List, Mapping, Optional, Tuple
 import torch
 
 from .. import trace
-from ..kernels import me_cuda
+from ..kernels import me_cuda, rate_chain_cuda
 
 Tensors = Dict[str, torch.Tensor]
 #: a step: (state, frame) -> (new state, outputs), each a dict of tensors
@@ -90,10 +95,18 @@ class Captured:
     #: growth of the device memory the caching allocator reserved over the
     #: capture: the graph's private pool
     pool_bytes: int
+    #: rate-control chain kernel launches one replay executes, and the
+    #: (stream, GOB) pairs its walk carries
+    chain_launches: int = 0
+    chain_gobs: int = 0
 
     def replay(self) -> None:
         self.graph.replay()
         me_cuda.LAUNCHES += self.launches
+        rate_chain_cuda.LAUNCHES += self.chain_launches
+        rate_chain_cuda.GOBS += self.chain_gobs
+        if self.chain_gobs:
+            trace.count("p64.rate.chain_kernel_gobs", self.chain_gobs)
 
 
 def capture(fn: Callable[[], object], warmup: Callable[[], object],
@@ -103,7 +116,7 @@ def capture(fn: Callable[[], object], warmup: Callable[[], object],
     own memory pool.  Raises on any failure; nothing is kept then."""
     with torch.cuda.device(device):
         stream = torch.cuda.Stream()
-        before = me_cuda.LAUNCHES
+        before = _counts()
         try:
             t0 = time.perf_counter()
             stream.wait_stream(torch.cuda.current_stream())
@@ -116,15 +129,27 @@ def capture(fn: Callable[[], object], warmup: Callable[[], object],
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             graph = torch.cuda.CUDAGraph()
-            at_capture = me_cuda.LAUNCHES
+            at_capture = _counts()
             with torch.cuda.graph(graph, stream=stream):
                 result = fn()
-            launches = me_cuda.LAUNCHES - at_capture
+            grew = [b - a for a, b in zip(at_capture, _counts())]
             t2 = time.perf_counter()
         finally:
-            me_cuda.LAUNCHES = before
+            _set_counts(before)
         pool = torch.cuda.memory_reserved() - reserved
-    return Captured(graph, result, launches, t1 - t0, t2 - t1, pool)
+    return Captured(graph, result, grew[0], t1 - t0, t2 - t1, pool,
+                    chain_launches=grew[1], chain_gobs=grew[2])
+
+
+def _counts() -> Tuple[int, int, int]:
+    """The launch counts a capture records (Captured's fields)."""
+    return (me_cuda.LAUNCHES, rate_chain_cuda.LAUNCHES,
+            rate_chain_cuda.GOBS)
+
+
+def _set_counts(counts: Tuple[int, int, int]) -> None:
+    (me_cuda.LAUNCHES, rate_chain_cuda.LAUNCHES,
+     rate_chain_cuda.GOBS) = counts
 
 
 def _guard(device: torch.device):

@@ -54,6 +54,15 @@ for _i, (_n, _a, _q, _m, _f, _c, _t, _bits) in enumerate(tables.MTYPE_ROWS):
     MTYPE_INTRA[_i], MTYPE_MQUANT[_i], MTYPE_MC[_i] = _a, _q, _m
     MTYPE_FIL[_i], MTYPE_CBP[_i], MTYPE_TCOEFF[_i] = _f, _c, _t
 
+#: base MTYPE row -> its MQUANT variant (the identity where none exists):
+#: the MTYPE of the MB that carries a changed segment's MQUANT.  The JAX
+#: package keeps this table in its encoder (`_MQ_UPGRADE`).
+MQ_UPGRADE = np.arange(10, dtype=np.int32)
+for _base, _mq in (("intra", "intra_mquant"), ("inter", "inter_mquant"),
+                   ("inter_mc_coef", "inter_mc_mquant"),
+                   ("inter_fil_coef", "inter_fil_mquant")):
+    MQ_UPGRADE[tables.MTYPE_BY_NAME[_base]] = tables.MTYPE_BY_NAME[_mq]
+
 #: index by (mvd + 16), mvd in -16..15
 MVD_CODE, MVD_LEN = _enc_arrays(tables.MVD_CODES, 32, offset=16)
 

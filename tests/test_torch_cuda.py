@@ -13,6 +13,8 @@ they also run on a GPU host without it:
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +25,11 @@ from p64tpu_torch.kernels import me, me_cuda, me_variants, me_variants_cuda
 from p64tpu_torch.spec.constants import CIF, QCIF
 from p64tpu_torch.tools import golden_content as gc
 from p64tpu_torch.tools import pinned
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
+import rate_goldens  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -405,3 +412,79 @@ def test_compile_check_and_dry_run_on_the_card(cuda):
     assert on_card["devices"] == (torch.device("cuda", 0),) * 4
     on_cpu = dryrun.dryrun_multichip(4, devices=["cpu"] * 4)
     assert on_card["streams"] == on_cpu["streams"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg", [1, 2, 3, 4, 33, 40])
+@pytest.mark.parametrize("fmt", [QCIF, CIF], ids=["qcif", "cif"])
+def test_rate_chain_kernels_equal_the_plain_chain(cuda, fmt, nseg):
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.kernels import rate_chain_cuda
+
+    cfg = encoder.EncoderConfig(fmt=fmt, rate=RateConfig(
+        bit_rate=1_920_000, mquant_segments=nseg))
+    args = [torch.as_tensor(x, device=cuda)
+            for x in chip_smoke.chain_inputs(nseg, 5, fmt.num_gobs)]
+    before = rate_chain_cuda.LAUNCHES
+    got = rate_chain_cuda.rate_chain_cuda(cfg.rate, *args)
+    torch.cuda.synchronize()
+    assert rate_chain_cuda.LAUNCHES - before == 3
+    want = encoder._gob_chain(cfg, *args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg", [1, 3])
+def test_rate_encode_through_the_kernels_equals_the_plain_chain(
+        cuda, monkeypatch, nseg):
+    """Eager encodes of a rate-controlled QCIF batch through the chain's
+    kernels and through the plain chain on the card, and the replayed one
+    with three chain launches a frame, agree in every output."""
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.kernels import rate_chain_cuda
+
+    cfg = encoder.EncoderConfig(fmt=QCIF, rate=RateConfig(
+        bit_rate=128_000, mquant_segments=nseg))
+    t = 4
+    frames = {k: torch.as_tensor(v, device=cuda)
+              for k, v in _qcif_batch(3, t).items()}
+    state_k, want = encoder.encode_sequence_eager(cfg, frames, device=cuda)
+    before = rate_chain_cuda.LAUNCHES
+    state_g, got = encoder.encode_sequence_graphed(
+        cfg, frames, device=cuda, cache=graphs.ProgramCache())
+    torch.cuda.synchronize()
+    assert rate_chain_cuda.LAUNCHES - before == 3 * t
+    monkeypatch.setattr(encoder, "gob_chain", encoder._gob_chain)
+    state_p, plain = encoder.encode_sequence_eager(cfg, frames, device=cuda)
+    for out, st in ((got, state_g), (plain, state_p)):
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+        for k in state_k:
+            assert torch.equal(st[k], state_k[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg", rate_goldens.SEGMENTS)
+def test_rate_encode_on_the_card_equals_the_jax_package(cuda, nseg):
+    """The card's rate-controlled encode, whose chain runs the kernels
+    (three launches a replayed frame), eager and replayed, gives every
+    output and the final state the JAX package gives on the CPU: the
+    digests of tests/rate_goldens.json, which test_torch_graphs holds to
+    the JAX package."""
+    from p64tpu_torch.kernels import rate_chain_cuda
+
+    cfg = rate_goldens.config(nseg)
+    frames = {k: torch.as_tensor(v, device=cuda)
+              for k, v in rate_goldens.frames().items()}
+    want = rate_goldens.pinned()[str(nseg)]
+    before = rate_chain_cuda.LAUNCHES
+    state, out = encoder.encode_sequence_graphed(
+        cfg, frames, device=cuda, cache=graphs.ProgramCache())
+    torch.cuda.synchronize()
+    assert rate_chain_cuda.LAUNCHES - before == 3 * rate_goldens.FRAMES
+    assert rate_goldens.port_digests(state, out) == want
+    before = rate_chain_cuda.LAUNCHES
+    state, out = encoder.encode_sequence_eager(cfg, frames, device=cuda)
+    assert rate_chain_cuda.LAUNCHES - before == 3 * rate_goldens.FRAMES
+    assert rate_goldens.port_digests(state, out) == want

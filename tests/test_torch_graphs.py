@@ -25,6 +25,8 @@ from p64tpu_torch.spec import constants
 from p64tpu_torch.spec.luts import MTYPE_MQUANT
 from p64tpu_torch.tools.bench import make_content
 
+import rate_goldens
+
 torch.set_num_threads(1)
 
 T = 3
@@ -292,7 +294,7 @@ def test_graphed_reconstruct_equals_eager_and_jax():
 #: host-side functions in them that may read the device
 STEP_MODULES = ("core/encoder.py", "core/predict.py", "core/reconstruct.py",
                 "core/blocks.py", "kernels/me.py", "kernels/me_cuda.py",
-                "kernels/dct.py", "kernels/quant.py", "kernels/filter.py",
+                "kernels/rate_chain_cuda.py", "kernels/dct.py", "kernels/quant.py", "kernels/filter.py",
                 "control/decisions.py", "control/ratecontrol.py",
                 "entropy/lengths.py")
 HOST_FUNCTIONS = {"state_from_numpy", "state_to_numpy", "outputs_to_host",
@@ -337,3 +339,21 @@ def test_the_sync_guard_sees_a_sync():
            "def outputs_to_host(x):\n"
            "    return x.cpu()\n")
     assert _syncing_calls(src) == [(2, "item"), (2, "nonzero")]
+
+
+@pytest.mark.parametrize("nseg", rate_goldens.SEGMENTS)
+def test_rate_goldens_are_the_jax_package_and_the_port(nseg):
+    """tests/rate_goldens.json, which the card's encode through the rate
+    chain's kernels is held to (test_torch_cuda), is what the JAX package
+    and the port's CPU encode (the plain chain) give; the case codes every
+    frame, and with 3 segments sends MQUANT."""
+    want = rate_goldens.pinned()[str(nseg)]
+    assert rate_goldens.jax_digests(nseg) == want
+    frames = {k: torch.as_tensor(v) for k, v in rate_goldens.frames().items()}
+    state, out = encoder.encode_sequence_graphed(
+        rate_goldens.config(nseg), frames, device="cpu",
+        cache=graphs.ProgramCache())
+    assert rate_goldens.port_digests(state, out) == want
+    assert bool(out["frame_coded"].all())
+    mquant = MTYPE_MQUANT[out["mtype"].numpy()] & out["coded"].numpy()
+    assert mquant.any() == (nseg > 1)
