@@ -643,30 +643,32 @@ def outputs_to_symbols(cfg: EncoderConfig,
     coded frames, ready for entropy.encode.serialize_sequence: the
     single-stream API, and the oracle of serialize_streams.  Outputs may
     be tensors on any device or host arrays (numpy, or the host tensors
-    of outputs_to_host once their event has completed)."""
-    with trace.span("p64.encode.symbols"):
-        host = {k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
-                                                           torch.Tensor)
-                    else np.asarray(outputs[k])) for k in SYMBOL_KEYS}
-        streams = []
-        for si in range(host["frame_coded"].shape[0]):
-            syms = []
-            for i in range(host["frame_coded"].shape[1]):
-                if not host["frame_coded"][si, i]:
-                    continue
-                # reassemble int16 levels from the int8 tensor + intra-DC
-                # sidecar (nonzero exactly on intra coded MBs: DC FLC >= 1)
-                lv = host["levels8"][si, i].astype(np.int16)
-                dc = host["dc_intra"][si, i].astype(np.int16)
-                lv[..., 0] = np.where(dc > 0, dc, lv[..., 0])
-                syms.append(FrameSymbols(
-                    tr=int(host["tr"][si, i]), gquant=host["gquant"][si, i],
-                    coded=host["coded"][si, i], mtype=host["mtype"][si, i],
-                    mv=host["mv"][si, i], cbp=host["cbp"][si, i],
-                    levels=lv, quant_mb=host["quant_mb"][si, i],
-                    n_stuff=int(host["n_stuff"][si, i])))
-            streams.append(syms)
-        return streams
+    of outputs_to_host once their event has completed).  Opens no span:
+    `p64.encode.symbols` is serialize_streams' alone, so a traced run
+    that calls this oracle adds nothing to the batch finalize's
+    spans."""
+    host = {k: (outputs[k].cpu().numpy() if isinstance(outputs[k],
+                                                       torch.Tensor)
+                else np.asarray(outputs[k])) for k in SYMBOL_KEYS}
+    streams = []
+    for si in range(host["frame_coded"].shape[0]):
+        syms = []
+        for i in range(host["frame_coded"].shape[1]):
+            if not host["frame_coded"][si, i]:
+                continue
+            # reassemble int16 levels from the int8 tensor + intra-DC
+            # sidecar (nonzero exactly on intra coded MBs: DC FLC >= 1)
+            lv = host["levels8"][si, i].astype(np.int16)
+            dc = host["dc_intra"][si, i].astype(np.int16)
+            lv[..., 0] = np.where(dc > 0, dc, lv[..., 0])
+            syms.append(FrameSymbols(
+                tr=int(host["tr"][si, i]), gquant=host["gquant"][si, i],
+                coded=host["coded"][si, i], mtype=host["mtype"][si, i],
+                mv=host["mv"][si, i], cbp=host["cbp"][si, i],
+                levels=lv, quant_mb=host["quant_mb"][si, i],
+                n_stuff=int(host["n_stuff"][si, i])))
+        streams.append(syms)
+    return streams
 
 
 def serialize_streams(cfg: EncoderConfig,
@@ -678,7 +680,8 @@ def serialize_streams(cfg: EncoderConfig,
     SYMBOL_KEYS outputs in place, int8 levels and all, and writes each
     stream's bytes into a slot sized from its `total_bits`.  Two spans on
     the calling thread: `p64.encode.symbols`, the outputs made ready for
-    the engine (host arrays in its dtypes, the slots), then
+    the engine (host arrays in its dtypes, the slots; no other function
+    opens it), then
     `p64.fan.serialize`, the engine over ranges of streams fanned across
     threads (utils.fan_map; ctypes releases the GIL), which also checks
     the symbols it writes.  Counters of what the rate control did:

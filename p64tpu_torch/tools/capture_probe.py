@@ -54,7 +54,7 @@ from ..core import encoder as enc
 from ..core import graphs
 from ..kernels import me_cuda
 from ..spec.constants import CIF
-from .bench import card_line
+from ..utils import card_line
 
 VARIANTS = ("base16", "s1", "f2", "search7", "intra", "base64")
 

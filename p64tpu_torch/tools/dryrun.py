@@ -40,7 +40,7 @@ from ..core import encoder as enc
 from ..core import graphs
 from ..distrib import mesh as dm
 from ..spec.constants import QCIF
-from .bench import card_line
+from ..utils import card_line
 
 #: frames of the dry run: two, so that the inter path (search, MC and the
 #: reconstruction carried as the reference) runs

@@ -56,7 +56,7 @@ SEARCHES = (0, 1, 2, 3, 7, 15)
 FAIL_FILE = "fuzz_fail.json"
 
 
-def make_content(rng: np.random.Generator, fmt, t: int, family: str):
+def family_content(rng: np.random.Generator, fmt, t: int, family: str):
     """(T, H, W) luma and (T, H/2, W/2) chroma uint8 frames of one content
     family, drawn from rng as the reference tool draws them."""
     h, w = fmt.height, fmt.width
@@ -110,7 +110,7 @@ def sample(rng: np.random.Generator) -> dict:
                 rate=dataclasses.asdict(rate), intra_only=search == 0,
                 intra_period=intra_period, emit_recon=emit_recon,
                 filter_with_mc=filter_with_mc, family=family,
-                frames=make_content(rng, fmt, t, family))
+                frames=family_content(rng, fmt, t, family))
 
 
 def port_config(s: dict):

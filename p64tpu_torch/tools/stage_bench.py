@@ -60,7 +60,7 @@ from ..kernels.dct import fdct8x8_zz
 from ..kernels.me import full_search
 from ..kernels.quant import quantize_zz
 from ..spec.constants import CIF, MB_SIZE, Format
-from .bench import card_line
+from ..utils import card_line
 
 #: the stages, in the reference's order
 STAGES = ("me_full_search", "mc_predict", "decide_modes", "fdct",

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import glob
 import os
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, TypeVar
 
@@ -46,6 +47,14 @@ def fan_map(fn: Callable[[_T], _R], items: Sequence[_T], *,
         workers = min(len(items), (os.cpu_count() or 2))
         with ThreadPoolExecutor(max_workers=workers) as pool:
             return list(pool.map(fn, items))
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
 
 
 def expand_inputs(patterns: Sequence[str]) -> List[str]:

@@ -323,7 +323,7 @@ GRAPH_RATES = {"q10": dict(fixed_quant=10),
 @pytest.mark.parametrize("search", [0, 2, 15])
 def test_replayed_encode_equals_eager(cuda, search, streams, rate):
     from p64tpu_torch.control.ratecontrol import RateConfig
-    from p64tpu_torch.tools.bench import make_content
+    from p64tpu_torch.tools.content import make_content
 
     cfg = encoder.EncoderConfig(fmt=CIF, search=search,
                                 rate=RateConfig(**GRAPH_RATES[rate]))

@@ -22,8 +22,8 @@ from p64tpu_torch.core import encoder as tenc
 from p64tpu_torch.entropy.parse import StreamError
 from p64tpu_torch.spec.constants import CIF, QCIF
 from p64tpu_torch.spec.luts import MTYPE_MQUANT
-from p64tpu_torch.tools import bench
 from p64tpu_torch.tools import golden_content as gc
+from p64tpu_torch.tools.content import make_decode_content
 from p64tpu_torch.tools.fuzz_differential import planes_or_refusal
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -134,8 +134,7 @@ def test_resync_concealment_equals_jax():
 def test_decode_bench_mix_slice_equals_jax():
     """4 CIF streams x 3 frames of the decode-benchmark mix (fixed q,
     stuffing-heavy and MQUANT rate control), decoded as one batch."""
-    datas, n_stuff, n_mq, recon = bench.make_decode_content(4, 3, 10,
-                                                            device="cpu")
+    datas, n_stuff, n_mq, recon = make_decode_content(4, 3, 10, device="cpu")
     assert n_stuff > 0 and n_mq > 0
     parsed = [tdec.parse_to_tensors(d) for d in datas]
     assert all(p[0] is CIF for p in parsed)

@@ -23,7 +23,7 @@ from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import decoder, encoder, graphs
 from p64tpu_torch.spec import constants
 from p64tpu_torch.spec.luts import MTYPE_MQUANT
-from p64tpu_torch.tools.bench import make_content
+from p64tpu_torch.tools.content import make_content
 
 import rate_goldens
 
@@ -357,3 +357,18 @@ def test_rate_goldens_are_the_jax_package_and_the_port(nseg):
     assert bool(out["frame_coded"].all())
     mquant = MTYPE_MQUANT[out["mtype"].numpy()] & out["coded"].numpy()
     assert mquant.any() == (nseg > 1)
+
+
+def test_capture_probe_exits_2_without_a_card(monkeypatch, capsys):
+    """The capture probe times the card's graph capture: without a card
+    it prints nothing on stdout and exits 2, as it does for an unknown
+    variant."""
+    from p64tpu_torch.tools import capture_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert capture_probe.main([]) == 2
+    out, err = capsys.readouterr()
+    assert out == "" and "no CUDA device" in err
+    assert capture_probe.main(["base16", "xla_me"]) == 2
+    out, err = capsys.readouterr()
+    assert out == "" and "unknown variants ['xla_me']" in err

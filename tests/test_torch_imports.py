@@ -50,8 +50,8 @@ def _port_sources():
 FORBIDDEN = ("p64tpu", "jax", "jaxlib", "bench", "tools")
 
 
-def _jax_package_imports(path):
-    """(line, module) of every absolute import in path of a FORBIDDEN
+def _jax_package_imports(path, forbidden=FORBIDDEN):
+    """(line, module) of every absolute import in path of a `forbidden`
     module or one of its submodules (relative imports are the port's
     own)."""
     with open(path) as f:
@@ -65,7 +65,7 @@ def _jax_package_imports(path):
         else:
             continue
         for name in names:
-            if name.split(".")[0] in FORBIDDEN:
+            if name.split(".")[0] in forbidden:
                 found.append((node.lineno, name))
     return found
 
@@ -95,7 +95,7 @@ def test_the_import_scan_finds_imports_of_jax_and_the_repo_tools(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import bench\nfrom tools import stage_bench\n"
                    "import tools.bench_breadth as bb\nimport jax.numpy\n"
-                   "from p64tpu_torch.tools import bench\n"
+                   "from p64tpu_torch.tools import content\n"
                    "from ..tools import stage_bench\nimport benchmark\n"
                    "from p64tpu_torch import tools\n")
     assert _jax_package_imports(str(src)) == [
@@ -104,9 +104,24 @@ def test_the_import_scan_finds_imports_of_jax_and_the_repo_tools(tmp_path):
 
 
 def test_the_port_has_its_benchmark_tools():
+    """The stage bench and the bench content are the port's; its one
+    benchmark is `port_bench/`, so no second bench tool lies in the
+    package."""
     names = {os.path.relpath(p, PORT) for p in _port_sources()}
     assert {os.path.join("tools", f"{n}.py") for n in
-            ("bench", "stage_bench", "bench_breadth")} <= names
+            ("stage_bench", "content")} <= names
+    assert not {os.path.join("tools", f"{n}.py") for n in
+                ("bench", "bench_breadth")} & names
+
+
+def test_the_port_never_imports_its_benchmark():
+    """The layering runs one way, benchmark -> port: no module of the port
+    imports `port_bench` (absolutely; relative imports are the port's)."""
+    files = [p for p in _port_sources() if p.startswith(PORT + os.sep)]
+    assert len(files) > 40
+    offenders = {os.path.relpath(p, REPO):
+                 _jax_package_imports(p, ("port_bench",)) for p in files}
+    assert not {k: v for k, v in offenders.items() if v}
 
 
 def test_the_port_has_its_dry_run():

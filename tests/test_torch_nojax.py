@@ -46,10 +46,9 @@ torch.set_num_threads(1)
 import p64tpu_torch
 from p64tpu_torch import cli
 from p64tpu_torch.kernels import me_variants, me_variants_cuda
-from p64tpu_torch.tools import (batch_decode, batch_encode, bench,
-                                bench_breadth, dryrun, fuzz_differential,
-                                fuzz_encoder, parity, pinned, profile,
-                                stage_bench)
+from p64tpu_torch.tools import (batch_decode, batch_encode, content, dryrun,
+                                fuzz_differential, fuzz_encoder, parity,
+                                pinned, profile, stage_bench)
 from p64tpu_torch.distrib import mesh, multihost
 from p64tpu_torch.io import checkpoint
 from p64tpu_torch.core import decoder, encoder
@@ -92,7 +91,7 @@ with tempfile.TemporaryDirectory() as tmp:
     st, streams, meta = checkpoint.load(tmp + "/ck", device="cpu")
 assert streams == [sh_data[1][0]] and meta == {"frames": 2}
 assert all(torch.equal(st[k], v) for k, v in states[1].items())
-assert bench.make_content(QCIF, 1, 1)["y"].shape == (1, 1, 144, 176)
+assert content.make_content(QCIF, 1, 1)["y"].shape == (1, 1, 144, 176)
 assert set(stage_bench.make_stages(1, "cpu")) == set(stage_bench.STAGES)
 assert fuzz_encoder.run("cpu", count=1)["configs"] == 1
 assert fuzz_differential.run("cpu", count=2)["streams"] == 2

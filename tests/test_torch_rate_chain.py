@@ -29,7 +29,7 @@ from p64tpu_torch.core import encoder as enc
 from p64tpu_torch.core import graphs
 from p64tpu_torch.kernels import rate_chain_cuda as rc
 from p64tpu_torch.spec.constants import QCIF
-from p64tpu_torch.tools.bench import make_content
+from p64tpu_torch.tools.content import make_content
 from port_bench import harness, tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -159,6 +159,23 @@ def test_batch_serializer_counts_its_streams(streams):
     assert trace.counters()["p64.serialize.streams"] == middle
 
 
+def test_only_the_batch_serializer_opens_the_symbols_span():
+    """Under the profiler the oracle (outputs_to_symbols) opens no
+    p64.encode.symbols span on CPU outputs; serialize_streams opens
+    exactly one."""
+    cfg = _cfg()
+    _, out = encoder.encode_sequence(cfg, _batch(), device=CPU)
+
+    def symbols_spans(fn):
+        before = _last_id()
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn(cfg, out)
+        return [r for r in _new(before) if r.name == "p64.encode.symbols"]
+
+    assert symbols_spans(encoder.outputs_to_symbols) == []
+    assert len(symbols_spans(encoder.serialize_streams)) == 1
+
+
 def test_spans_are_on_the_profiler_clock(traced):
     records = traced[3] + traced[4]
     events = {}
