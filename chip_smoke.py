@@ -153,6 +153,19 @@ run with a non-zero exit and no result line:
                  chain's launches by path, the main path's (the captured
                  p = 30 program at 32 streams) on their own, and the
                  largest difference from the plain chain
+ 24. levels   -- the decode's levels expanded on the card
+                 (csrc/levels_expand.cu, kernels.levels_cuda): ptxas
+                 figures; for the decode cell's shape (128 CIF streams x 32
+                 frames of the benchmark content at p = 16, encoded on the
+                 card, parsed on threads) and for 128 CIF streams x 4 frames
+                 whose every level is nonzero, or zero: the kernel's levels8
+                 equal to the plain version's and to the dense np.stack of
+                 the parsed levels8; the kernel timed by CUDA events (calls
+                 captured in a graph) beside its bytes bound and the plain
+                 version; at the cell's shape the host stack (stack_seqs,
+                 packed) beside the dense np.stack and pageable copy it
+                 replaced; one launch for a decode_seq_batch, and the
+                 launches by path
 
 From phase 4 on, every encode_sequence and reconstruct_seq on the card
 replays a captured program (core.graphs): the pins, the headline, the
@@ -234,6 +247,10 @@ SERIALIZE_MQ_BITS, SERIALIZE_MQ_SEGMENTS, SERIALIZE_MQ_NOISE = \
 #: of its random inputs
 CHAIN_STREAMS, CHAIN_FRAMES = (32, 128), 8
 CHAIN_SEGMENTS = (1, 2, 3, 4, 33, 40)
+#: the levels phase's inputs (levels_seqs), and the frames of its
+#: synthetic batches
+LEVELS_KINDS = ("cell", "all_nonzero", "all_zero")
+LEVELS_SYNTH_FRAMES = 4
 #: SAD-map kernel -> line of the TPU kernel body it replaces in
 #: p64tpu/kernels/me_pallas.py
 MAP_KERNELS = {"sad_map_f32": 49, "sad_map_rp": 239, "sad_map_i8": 331,
@@ -1189,6 +1206,162 @@ def rate_chain_phase(dev, card: str) -> dict:
             "ptxas": ptxas}
 
 
+def levels_seqs(kind: str, dev):
+    """(fmt, parsed seq dicts) of the levels phase.  "cell": the decode
+    cell's shape, 128 CIF streams x 32 frames of the benchmark content at
+    p = 16, encoded on `dev` and parsed on threads (the streams of its
+    largest group of equal frame count); "all_nonzero" and "all_zero": 128
+    CIF streams x LEVELS_SYNTH_FRAMES frames whose every level is nonzero
+    (seeded, in -128..127) or zero, packed by the native packer, with the
+    other keys at neutral values."""
+    import dataclasses
+
+    import numpy as np
+
+    from p64tpu_torch.control.ratecontrol import RateConfig
+    from p64tpu_torch.core import decoder
+    from p64tpu_torch.core import encoder as enc
+    from p64tpu_torch.native import load
+    from p64tpu_torch.spec.constants import CIF
+    from p64tpu_torch.tools.content import make_content
+    from p64tpu_torch.utils import fan_map
+
+    if kind == "cell":
+        cfg = dataclasses.replace(headline_cfg(emit_recon=False),
+                                  rate=RateConfig(
+                                      bit_rate=SERIALIZE_RC_BITS,
+                                      frame_rate=SERIALIZE_RC_FPS))
+        datas, _, _ = enc.encode_to_bytes(
+            cfg, make_content(CIF, HEADLINE_STREAMS, HEADLINE_FRAMES),
+            device=dev)
+        load()
+        parsed = fan_map(decoder.parse_to_tensors, datas)
+        groups = collections.Counter(seq["levels8"].shape[0]
+                                     for _, _, seq in parsed)
+        t = groups.most_common(1)[0][0]
+        return CIF, [seq for _, _, seq in parsed
+                     if seq["levels8"].shape[0] == t]
+    rng = np.random.default_rng(24)
+    m, t = CIF.num_mbs, LEVELS_SYNTH_FRAMES
+    seqs = []
+    for _ in range(HEADLINE_STREAMS):
+        if kind == "all_zero":
+            levels8 = np.zeros((t, m, 6, 64), np.int8)
+        else:
+            levels8 = rng.integers(1, 256, (t, m, 6, 64)).astype(
+                np.uint8).view(np.int8)
+        seqs.append(dict(
+            levels8=levels8, dc=np.zeros((t, m, 6), np.uint8),
+            quant=np.ones((t, m), np.int32),
+            intra=np.zeros((t, m), bool), mv=np.zeros((t, m, 2), np.int32),
+            fil=np.zeros((t, m), bool), **load().pack_levels(levels8)))
+    return CIF, seqs
+
+
+def levels_phase(dev, card: str) -> dict:
+    """Phase 24 (see the module docstring).  Returns "figures": per input
+    kind the kernel's and the plain version's ms, the bound and its bytes;
+    "stack": at the cell's shape the host ms of stack_seqs and of the dense
+    stack and copy it replaced; "launches_by_path"; "main_path_launches":
+    the launches of one decode_seq_batch of the cell's streams;
+    "max_abs_err"; "ptxas"."""
+    import numpy as np
+    import torch
+
+    from p64tpu_torch.core import decoder
+    from p64tpu_torch.kernels import _build
+    from p64tpu_torch.kernels import levels_cuda as lc
+
+    t_phase = time.perf_counter()
+    by_path = {"earlier_phases": lc.LAUNCHES}
+    lc.LAUNCHES = 0
+    _build.load("levels_expand")
+    ptxas = ptxas_summary(_build.ptxas_report("levels_expand"))
+    for name, f in ptxas.items():
+        log(f"[levels] ptxas {name}: {f['registers']} registers, "
+            f"{f['smem_bytes']} bytes static shared memory, "
+            f"{f['spill_bytes']} bytes spilled")
+    figures, stack, max_err, main_path = {}, {}, 0, None
+    by_path.update(checks=0, timing=0, stack=0, decode=0)
+    for kind in LEVELS_KINDS:
+        fmt, seqs = levels_seqs(kind, dev)
+        parts = decoder.ship_packed(fmt, seqs, dev)
+        args = [parts[k] for k in ("nz_mbs", "nz_blocks", "nz_levels",
+                                   "nz_bases")]
+        lc.LAUNCHES = 0
+        got = lc.expand_levels(*args)
+        plain = lc.expand_levels_plain(*args)
+        dense = torch.from_numpy(np.stack([s["levels8"] for s in seqs],
+                                          axis=1)).to(dev)
+        for what, want in (("plain version", plain), ("dense stack", dense)):
+            err = int((got.to(torch.int16) - want.to(torch.int16)).abs()
+                      .max())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"levels {kind}: kernel != {what}, max "
+                                     f"|err| {err}")
+        del plain, dense
+        by_path["checks"] += lc.LAUNCHES
+        lc.LAUNCHES = 0
+        ms = min(graph_ms(lambda: lc.expand_levels(*args), 20)
+                 for _ in range(2))
+        plain_ms = min(cuda_ms(lambda: lc.expand_levels_plain(*args), 3)
+                       for _ in range(2))
+        by_path["timing"] += lc.LAUNCHES
+        packed = sum(a.nbytes for a in args)
+        nbytes = got.nbytes + packed
+        bound_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+        figures[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bytes=nbytes, packed_bytes=packed,
+                             values=int(args[2].numel()))
+        s, t = len(seqs), seqs[0]["levels8"].shape[0]
+        log(f"[levels] {kind} {s}x{t} {fmt.name}: kernel == plain version "
+            f"== dense stack; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+            f"bound {bound_ms:.4f} ms ({got.nbytes} bytes written, {packed} "
+            f"packed bytes read: {args[2].numel()} levels, "
+            f"{args[1].numel()} block masks), {bound_ms / ms:.1%} of it, on "
+            f"{card}")
+        del got, parts, args
+        if kind == "cell":
+            lc.LAUNCHES = 0
+            walls = {"packed": [], "dense": []}
+            for _ in range(3):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                batch = decoder.stack_seqs(fmt, seqs, dev)
+                torch.cuda.synchronize(dev)
+                walls["packed"].append(time.perf_counter() - t0)
+                del batch
+                t0 = time.perf_counter()
+                host = {k: np.stack([x[k] for x in seqs], axis=1)
+                        for k in decoder.SEQ_KEYS}
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in host.items()}
+                torch.cuda.synchronize(dev)
+                walls["dense"].append(time.perf_counter() - t0)
+                del batch, host
+            by_path["stack"] += lc.LAUNCHES
+            stack = {k: min(v) * 1e3 for k, v in walls.items()}
+            lc.LAUNCHES = 0
+            decoder.decode_seq_batch(fmt, seqs, device=dev)
+            main_path = lc.LAUNCHES
+            by_path["decode"] += main_path
+            if main_path != 1:
+                raise AssertionError(f"levels: {main_path} kernel launches "
+                                     "for one decode_seq_batch")
+            log(f"[levels] {kind}: host stack and copy to the card, best of "
+                f"3: stack_seqs (packed) {stack['packed']:.1f} ms, the dense "
+                f"np.stack and pageable copy {stack['dense']:.1f} ms; one "
+                f"launch for a decode_seq_batch, on {card}")
+        del seqs
+    log(f"[levels] launches by path {by_path}, main path {main_path}, max "
+        f"abs err {max_err}")
+    log(f"[levels] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"figures": figures, "stack": stack, "launches_by_path": by_path,
+            "main_path_launches": main_path, "max_abs_err": max_err,
+            "ptxas": ptxas}
+
+
 def checkpoint_phase(dev, dev_frames, outputs, card: str) -> int:
     """Phase 13: encode the first half of the headline, checkpoint it,
     load it onto `dev` and encode the second half from it; returns the
@@ -2026,7 +2199,10 @@ def main() -> int:
 
     # 23. the rate-control chain's kernels against the plain chain
     chain = rate_chain_phase(dev, card)
-    log(f"[done] phases 1-16 and 18-23 passed in "
+
+    # 24. the decode's levels expanded on the card
+    levels = levels_phase(dev, card)
+    log(f"[done] phases 1-16 and 18-24 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     log(card)
@@ -2061,6 +2237,18 @@ def main() -> int:
         "bound_ms": at32["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ptxas": chain["ptxas"], "by_config": {
             f"{n} x{s}": v for (n, s), v in chain["figures"].items()}})
+    cell = levels["figures"]["cell"]
+    kernels.append({
+        "name": "levels_expand", "route": "cuda",
+        "source": "p64tpu_torch/csrc/levels_expand.cu", "replaces": None,
+        "launches": sum(levels["launches_by_path"].values()),
+        "main_path_launches": levels["main_path_launches"],
+        "launches_by_path": levels["launches_by_path"],
+        "max_abs_err": levels["max_abs_err"],
+        "ms": cell["ms"], "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ptxas": levels["ptxas"],
+        "by_input": levels["figures"], "stack_ms": levels["stack"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,12 +8,14 @@ encoder uses for its local decode -- so encoder reconstruction and decoder
 output are identical by construction.
 
 Batch-first, like the rest of the port: `decode_seq_batch` stacks S
-equal-length parsed streams on the host, copies them to the device once,
-and runs the T frames (the reference's `lax.scan` under `vmap`) carrying
-the (S, H, W) planes: on a CUDA device as one captured reconstruct step
-replayed per frame (core.graphs, the counterpart of the reference's
-jitted `_decode_scan`), on the CPU as a host loop.  The planes stay on the
-device until one copy back at the end.
+equal-length parsed streams on the host, their levels packed (the nonzero
+levels and the masks that place them, packed by the parse threads), copies
+them to the device once, expands the levels there with one kernel
+(`kernels.levels_cuda`), and runs the T frames (the reference's
+`lax.scan` under `vmap`) carrying the (S, H, W) planes: on a CUDA device
+as one captured reconstruct step replayed per frame (core.graphs, the
+counterpart of the reference's jitted `_decode_scan`), on the CPU as a
+host loop.  The planes stay on the device until one copy back at the end.
 """
 
 from __future__ import annotations
@@ -27,13 +29,28 @@ import torch
 from .. import trace
 from ..spec.constants import MB_SIZE, Format
 from ..entropy.parse import ParsedFrame
-from ..native import load
+from ..kernels.levels_cuda import expand_levels
+from ..native import PACKED_KEYS, load
 from ..utils import fan_map
 from . import graphs
 from .reconstruct import reconstruct_frame
 
 #: keys of a parsed sequence dict (parse_to_tensors, frames_to_tensors)
+#: that the reconstruct step reads; the dict also holds PACKED_KEYS
+#: (native.binding.NativeBitIO.pack_levels), which stack_seqs ships
 SEQ_KEYS = ("levels8", "dc", "quant", "intra", "mv", "fil")
+#: the keys stack_seqs stacks as they are: all but levels8, which crosses
+#: to the device packed
+STACKED_KEYS = SEQ_KEYS[1:]
+#: the parts of stack_seqs' staging buffer, in order, with their dtypes on
+#: the host and on the device (the block masks' bits cross as int64); each
+#: part starts on a multiple of _ALIGN bytes
+_STAGE = dict(nz_blocks=(np.uint64, torch.int64),
+              nz_bases=(np.int64, torch.int64), dc=(np.uint8, torch.uint8),
+              quant=(np.int32, torch.int32), intra=(np.bool_, torch.bool),
+              mv=(np.int32, torch.int32), fil=(np.bool_, torch.bool),
+              nz_mbs=(np.uint8, torch.uint8), nz_levels=(np.int8, torch.int8))
+_ALIGN = 16
 
 Planes = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
@@ -55,20 +72,66 @@ def _check_mv(fmt: Format, mv: np.ndarray) -> None:
     idx = np.arange(fmt.num_mbs)
     y0 = (idx // fmt.mb_cols) * MB_SIZE
     x0 = (idx % fmt.mb_cols) * MB_SIZE
-    y = y0 + mv[..., 1]
-    x = x0 + mv[..., 0]
-    bad = ((y < 0) | (y + MB_SIZE > fmt.height)
-           | (x < 0) | (x + MB_SIZE > fmt.width))
-    if bad.any():
-        raise ValueError(f"{int(bad.sum())} motion vectors reference "
-                         f"outside the {fmt.name} picture")
+
+    def outside(lo, hi):
+        return ((y0 + lo[..., 1] < 0)
+                | (y0 + hi[..., 1] + MB_SIZE > fmt.height)
+                | (x0 + lo[..., 0] < 0)
+                | (x0 + hi[..., 0] + MB_SIZE > fmt.width))
+
+    # each MB's extreme vectors over the batch first: one pass
+    flat = mv.reshape(-1, fmt.num_mbs, 2)
+    if flat.size and outside(flat.min(axis=0), flat.max(axis=0)).any():
+        raise ValueError(f"{int(outside(mv, mv).sum())} motion vectors "
+                         f"reference outside the {fmt.name} picture")
 
 
-def stack_seqs(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
-               device: torch.device | str) -> Dict[str, torch.Tensor]:
-    """S equal-length parsed sequences -> (T, S, ...) tensors on `device`:
-    stacked on the host (the parser's strided int8 views become one
-    contiguous array per key), then copied to the device once."""
+def _stage_layout(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]]
+                  ) -> Tuple[Dict[str, Tuple[int, int, tuple]], int]:
+    """Where each part of a batch lies in the staging buffer: key ->
+    (byte offset, bytes, shape), and the buffer's bytes."""
+    t, s, m = np.shape(seqs[0]["levels8"])[0], len(seqs), fmt.num_mbs
+    nb = nv = 0
+    for seq in seqs:
+        total = np.asarray(seq["nz_offsets"])[-1]
+        if (len(seq["nz_blocks"]), len(seq["nz_levels"])) != tuple(total):
+            raise ValueError("packed levels do not add up to their offsets")
+        nb, nv = nb + int(total[0]), nv + int(total[1])
+    shapes = dict(nz_blocks=(nb,), nz_bases=(t, s, 2), dc=(t, s, m, 6),
+                  quant=(t, s, m), intra=(t, s, m), mv=(t, s, m, 2),
+                  fil=(t, s, m), nz_mbs=(t, s, m), nz_levels=(nv,))
+    layout, at = {}, 0
+    for k, (dtype, _) in _STAGE.items():
+        size = int(np.prod(shapes[k])) * np.dtype(dtype).itemsize
+        layout[k] = (at, size, shapes[k])
+        at += -(-size // _ALIGN) * _ALIGN
+    return layout, at
+
+
+def _sections(buf, layout: Mapping[str, Tuple[int, int, tuple]]) -> dict:
+    """Views of a uint8 staging buffer as its parts (_stage_layout): numpy
+    arrays in the host dtypes for an array, tensors in the device dtypes
+    for a tensor."""
+    side = int(isinstance(buf, torch.Tensor))
+    return {k: buf[at:at + size].view(_STAGE[k][side]).reshape(shape)
+            for k, (at, size, shape) in layout.items()}
+
+
+def ship_packed(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
+                device: torch.device | str) -> Dict[str, torch.Tensor]:
+    """S equal-length parsed sequences -> their STACKED_KEYS as (T, S, ...)
+    tensors on `device`, and their levels packed: the PACKED_KEYS but
+    `nz_offsets` (nz_mbs (T, S, nMB), nz_blocks as int64, nz_levels) and
+    nz_bases (T, S, 2), each (frame, stream)'s first block mask and first
+    level (kernels.levels_cuda).
+
+    Everything is written into one staging buffer (pinned on a CUDA
+    device) and copied to the device at once.  levels8 itself is never
+    read here, only its shape.  The packed keys must be pack_levels's
+    own: the kernel trusts that the masks count the blocks and levels the
+    offsets give.  The pinned buffer comes from torch's caching host
+    allocator, which hands it out again only after the copy out of it has
+    ended."""
     dev = _device(device)
     if not seqs:
         raise ValueError("no streams to decode")
@@ -78,13 +141,37 @@ def stack_seqs(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
                          "one batch")
     if np.shape(seqs[0]["levels8"])[1] != fmt.num_mbs:
         raise ValueError(f"sequence is not {fmt.name}")
+    layout, nbytes = _stage_layout(fmt, seqs)
+    buf = torch.empty(nbytes, dtype=torch.uint8,
+                      pin_memory=dev.type == "cuda")
+    host = _sections(buf.numpy(), layout)
+    for k in STACKED_KEYS + ("nz_mbs",):
+        np.stack([s[k] for s in seqs], axis=1, out=host[k])
+    _check_mv(fmt, host["mv"])
+    for k in ("nz_blocks", "nz_levels"):
+        np.concatenate([s[k] for s in seqs], out=host[k])
+    np.stack([s["nz_offsets"][:-1] for s in seqs], axis=1,
+             out=host["nz_bases"])
+    firsts = np.cumsum([s["nz_offsets"][-1] for s in seqs], axis=0)
+    host["nz_bases"][:, 1:] += firsts[:-1]
+    trace.count_copy(buf, dev, nbytes)
+    return _sections(buf.to(dev, non_blocking=True), layout)
+
+
+def stack_seqs(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
+               device: torch.device | str) -> Dict[str, torch.Tensor]:
+    """S equal-length parsed sequences -> their SEQ_KEYS as (T, S, ...)
+    tensors on `device`: the levels cross packed (ship_packed), and
+    `kernels.levels_cuda.expand_levels` makes the dense levels8 there, one
+    launch on a CUDA device."""
     with trace.span("p64.decode.stack"):
-        host = {k: np.stack([np.asarray(s[k]) for s in seqs], axis=1)
-                for k in SEQ_KEYS}
-        _check_mv(fmt, host["mv"])
-        for v in host.values():
-            trace.count_copy(v, dev, v.nbytes)
-        return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        parts = ship_packed(fmt, seqs, device)
+        batch = {k: parts[k] for k in STACKED_KEYS}
+        batch["levels8"] = expand_levels(parts["nz_mbs"], parts["nz_blocks"],
+                                         parts["nz_levels"],
+                                         parts["nz_bases"])
+        trace.count("p64.decode.packed_mbs", parts["nz_mbs"].numel())
+        return {k: batch[k] for k in SEQ_KEYS}
 
 
 def _init_planes(fmt: Format, batch: Mapping[str, torch.Tensor],
@@ -225,7 +312,8 @@ def split_levels(levels: np.ndarray, intra_mb: np.ndarray):
 
 def frames_to_tensors(frames: Sequence[ParsedFrame]) -> Dict[str, np.ndarray]:
     """Stack parsed frames into the (T, ...) seq dict parse_to_tensors
-    gives (same keys and dtypes)."""
+    gives (same keys and dtypes, the packed levels from the same
+    native entry)."""
     intra = np.stack([f.intra & f.coded for f in frames])
     levels8, dc = split_levels(np.stack([f.levels for f in frames]), intra)
     return dict(
@@ -235,6 +323,7 @@ def frames_to_tensors(frames: Sequence[ParsedFrame]) -> Dict[str, np.ndarray]:
         intra=intra,
         mv=np.stack([f.mv for f in frames]).astype(np.int32),
         fil=np.stack([f.fil & f.coded for f in frames]),
+        **load().pack_levels(levels8),
     )
 
 
@@ -252,6 +341,7 @@ def decode_frames(frames: Sequence[ParsedFrame], init=None, *,
     if any(f.fmt is not fmt for f in frames):
         raise ValueError("mixed picture formats in one sequence")
     batch = stack_seqs(fmt, [frames_to_tensors(frames)], device)
+    trace.count("p64.decode.macroblocks", len(frames) * fmt.num_mbs)
     if init is not None:
         dev = batch["levels8"].device
         shapes = ((fmt.height, fmt.width),

@@ -19,7 +19,8 @@ compiled with the flags of the JAX package's Makefile:
 
 The batch serializer (`csrc/serialize_batch.cpp`, which includes
 `bitio.cpp`) is built the same way into `build/native/libp64serialize.so`,
-and rebuilt when either source is newer.
+and rebuilt when either source is newer; the decode's level packer
+(`csrc/levels_pack.cpp`) into `build/native/libp64pack.so`.
 
 The build directory (`build/` at the repository root) is git-ignored; a
 library is rebuilt when its source is newer.  A missing compiler, a failed
@@ -51,6 +52,9 @@ NATIVE_LIB = "libp64bitio.so"
 #: the batch serializer's source (it includes NATIVE_SOURCE) and library
 BATCH_SOURCE = os.path.join(CSRC, "serialize_batch.cpp")
 BATCH_LIB = "libp64serialize.so"
+#: the level packer's source and library
+PACK_SOURCE = os.path.join(CSRC, "levels_pack.cpp")
+PACK_LIB = "libp64pack.so"
 #: the JAX package's `native/Makefile` CXXFLAGS plus -shared
 CXX_FLAGS = ["-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared"]
 
@@ -171,6 +175,13 @@ def build_batch_serializer() -> str:
     (under NATIVE_BUILD_DIR)."""
     return _compile(BATCH_SOURCE, os.path.join(NATIVE_BUILD_DIR, BATCH_LIB),
                     find_cxx, cxx_command, includes=(NATIVE_SOURCE,))
+
+
+def build_levels_pack() -> str:
+    """Compile the level packer if its library is missing or stale;
+    returns the library path (under NATIVE_BUILD_DIR)."""
+    return _compile(PACK_SOURCE, os.path.join(NATIVE_BUILD_DIR, PACK_LIB),
+                    find_cxx, cxx_command)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,8 +3,11 @@
 Port of `p64tpu/native/binding.py` (which imports JAX through
 `core.blocks`).  The engine is compiled from the port's copy of the JAX
 package's source, `csrc/bitio.cpp`, into `build/native/` by
-`kernels._build.build_native`; a missing compiler or a failed build
-raises, and nothing falls back to the Python serializer or parser.
+`kernels._build.build_native`, and beside it, from a source of the port's
+own (`csrc/levels_pack.cpp`), the level packer the decode ships its levels
+with, by `kernels._build.build_levels_pack`; a missing compiler or a
+failed build raises, and nothing falls back to the Python serializer or
+parser.
 Contracts mirror the pure-Python implementations exactly
 (`entropy.encode.serialize_sequence_py`, `entropy.parse.parse_stream`);
 tests assert byte-for-byte equality.
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import ctypes as C
 import threading
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -91,11 +94,23 @@ def raise_symbol_errors(cbp: int, mquant: int, gquant: int,
                          "MBs")
 
 
-class NativeBitIO:
-    """Wraps libp64bitio.so; hold one instance (tables are retained)."""
+#: the keys pack_levels gives, each a stream's (core.decoder.stack_seqs
+#: ships them in place of levels8): per MB the mask of its blocks with a
+#: nonzero level, per such block the mask of its nonzero slots, the nonzero
+#: levels, and the blocks and levels before each frame
+PACKED_KEYS = ("nz_mbs", "nz_blocks", "nz_levels", "nz_offsets")
 
-    def __init__(self, lib: C.CDLL) -> None:
+
+class NativeBitIO:
+    """Wraps libp64bitio.so, and the level packer libp64pack.so; hold one
+    instance (tables are retained)."""
+
+    def __init__(self, lib: C.CDLL, pack: C.CDLL) -> None:
         self._lib = lib
+        self._pack = pack
+        pack.p64_pack_levels.restype = C.c_int64
+        pack.p64_pack_levels.argtypes = [_P, C.c_int64, C.c_int32,
+                                         C.c_int64] + [_P] * 4
         lib.p64_pack_symbols.restype = C.c_int64
         lib.p64_pack_symbols.argtypes = [_P, _P, C.c_int64, _P, C.c_int64]
         lib.p64_serialize.restype = C.c_int64
@@ -221,6 +236,41 @@ class NativeBitIO:
             raise RuntimeError("serialize overflow")
         return out[: (bits + 7) // 8].tobytes(), int(bits)
 
+    # -- levels, packed ----------------------------------------------------
+
+    def pack_levels(self, levels8: np.ndarray) -> Dict[str, np.ndarray]:
+        """(T, nMB, 6, 64) int8 levels, each frame's contiguous (a frame
+        may be a slice of a larger buffer) -> the PACKED_KEYS arrays
+        (`csrc/levels_pack.cpp`):
+
+          nz_mbs     (T, nMB) uint8, bit b set where block b has a nonzero
+                     level
+          nz_blocks  (B,) uint64, per such block in (frame, MB, block)
+                     order, bit j set where slot j is nonzero
+          nz_levels  (V,) int8, the nonzero levels in (frame, MB, block,
+                     slot) order
+          nz_offsets (T + 1, 2) int64, blocks and levels before each frame
+                     (the last row: B and V)"""
+        if (levels8.dtype != np.int8 or levels8.ndim != 4
+                or levels8.shape[2:] != (6, 64)
+                or levels8.strides[1:] != (6 * 64, 64, 1)
+                or levels8.strides[0] < levels8.shape[1] * 6 * 64):
+            raise ValueError(
+                f"pack_levels needs (T, nMB, 6, 64) int8 levels with "
+                f"contiguous frames; got {levels8.dtype}{levels8.shape} "
+                f"strides {levels8.strides}")
+        t, m = levels8.shape[:2]
+        mbs = np.empty((t, m), np.uint8)
+        blocks = np.empty(t * m * 6, np.uint64)
+        values = np.empty(t * m * 6 * 64, np.int8)
+        offsets = np.empty((t + 1, 2), np.int64)
+        self._pack.p64_pack_levels(_ptr(levels8), t, m, levels8.strides[0],
+                                   _ptr(mbs), _ptr(blocks), _ptr(values),
+                                   _ptr(offsets))
+        nb, nv = (int(x) for x in offsets[-1])
+        return dict(nz_mbs=mbs, nz_blocks=blocks[:nb].copy(),
+                    nz_levels=values[:nv].copy(), nz_offsets=offsets)
+
     # -- parse -------------------------------------------------------------
 
     _RAW_FIELDS = (("fmt", (), np.int32), ("tr", (), np.int32),
@@ -272,10 +322,12 @@ class NativeBitIO:
         batched device reconstruction consumes (levels8/dc/quant/intra/mv/
         fil, with intra/fil already masked by coded; mv is NOT masked --
         an uncoded MB of a damaged GOB can keep the MV of a failed
-        re-parse, and reconstructs with it, as in the reference).  Skips
-        the per-frame ParsedFrame construction.  Raises StreamError on an
-        empty stream and on mixed CIF/QCIF.  resync=True enables start-code
-        error recovery (damage flags are not surfaced on this path).
+        re-parse, and reconstructs with it, as in the reference), and the
+        PACKED_KEYS of levels8 (pack_levels), packed on the calling
+        thread.  Skips the per-frame ParsedFrame construction.  Raises
+        StreamError on an empty stream and on mixed CIF/QCIF.
+        resync=True enables start-code error recovery (damage flags are
+        not surfaced on this path).
         """
         n, out = self._raw_parse(data, max_frames, resync=resync)
         if n == 0:
@@ -297,6 +349,7 @@ class NativeBitIO:
             mv=out["mv"][:n, :m],
             fil=(out["fil"][:n, :m] != 0) & coded,
         )
+        seq.update(self.pack_levels(seq["levels8"]))
         return fmt, out["tr"][:n].copy(), seq
 
     def parse(self, data: bytes, max_frames: int = 65536,
@@ -478,7 +531,8 @@ _load_lock = threading.Lock()
 
 
 def load() -> NativeBitIO:
-    """Build (if needed) and load the native engine, once per process.
+    """Build (if needed) and load the native engine and the level packer,
+    once per process.
 
     Raises if the engine cannot be built or loaded.  Thread-safe: the
     parse and serialize fan-outs call it from a thread pool, and two
@@ -488,7 +542,9 @@ def load() -> NativeBitIO:
         return _cached
     with _load_lock:
         if _cached is None:
-            _cached = NativeBitIO(_build.open_library(_build.build_native()))
+            _cached = NativeBitIO(
+                _build.open_library(_build.build_native()),
+                _build.open_library(_build.build_levels_pack()))
         return _cached
 
 

@@ -488,3 +488,45 @@ def test_rate_encode_on_the_card_equals_the_jax_package(cuda, nseg):
     state, out = encoder.encode_sequence_eager(cfg, frames, device=cuda)
     assert rate_chain_cuda.LAUNCHES - before == 3 * rate_goldens.FRAMES
     assert rate_goldens.port_digests(state, out) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", chip_smoke.LEVELS_KINDS)
+def test_levels_kernel_equals_the_plain_version(cuda, kind):
+    """The levels kernel expands a packed batch to the plain version's
+    levels8 and to the dense np.stack of the parsed levels8: at the decode
+    cell's shape (128 CIF streams x 32 frames of the benchmark content),
+    and for 128 CIF streams whose every level is nonzero, or zero.  Each
+    stack_seqs launches it once."""
+    from p64tpu_torch.kernels import levels_cuda
+
+    fmt, seqs = chip_smoke.levels_seqs(kind, cuda)
+    parts = decoder.ship_packed(fmt, seqs, cuda)
+    args = [parts[k] for k in ("nz_mbs", "nz_blocks", "nz_levels",
+                               "nz_bases")]
+    got = levels_cuda.expand_levels(*args)
+    assert torch.equal(got, levels_cuda.expand_levels_plain(*args))
+    dense = np.stack([s["levels8"] for s in seqs], axis=1)
+    assert torch.equal(got.cpu(), torch.from_numpy(dense))
+    del dense
+    before = levels_cuda.LAUNCHES
+    for _ in range(2):
+        batch = decoder.stack_seqs(fmt, seqs, cuda)
+        assert torch.equal(batch["levels8"], got)
+    assert levels_cuda.LAUNCHES - before == 2
+
+
+@pytest.mark.cuda
+def test_levels_kernel_refuses_a_cpu_mix(cuda):
+    """On a CUDA tensor the wrapper launches or raises: parts on two
+    devices are refused, never sent to the plain version."""
+    from p64tpu_torch.kernels import levels_cuda
+    from p64tpu_torch.native import load
+
+    seq = load().pack_levels(np.zeros((1, QCIF.num_mbs, 6, 64), np.int8))
+    mbs = torch.from_numpy(seq["nz_mbs"])[:, None].contiguous().to(cuda)
+    blocks = torch.from_numpy(seq["nz_blocks"].view(np.int64))
+    values = torch.from_numpy(seq["nz_levels"]).to(cuda)
+    bases = torch.zeros((1, 1, 2), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="blocks is on cpu"):
+        levels_cuda.expand_levels(mbs, blocks, values, bases)

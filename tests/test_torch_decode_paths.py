@@ -73,6 +73,10 @@ def _first_gob_start(data: bytes) -> int:
 
 @pytest.fixture(scope="module")
 def negative_slot0_stream():
+    return negative_slot0_data()
+
+
+def negative_slot0_data() -> bytes:
     """An intra MB (DC 200) re-parsed by a duplicate GOB as inter with
     slot-0 level -64, cut inside that block: slot 0 ends at -64 with the
     intra and coded flags kept."""

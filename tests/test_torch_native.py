@@ -21,6 +21,7 @@ from p64tpu_torch.entropy import encode as tenc
 from p64tpu_torch.entropy import parse as tparse
 from p64tpu_torch.kernels import _build
 from p64tpu_torch.native import binding
+from p64tpu_torch.native.binding import PACKED_KEYS
 from p64tpu_torch.spec import luts
 from p64tpu_torch.spec.constants import FORMATS as TFORMATS
 from p64tpu_torch.spec.constants import QCIF as TQCIF
@@ -142,7 +143,8 @@ def test_parse_matches_jax_and_python(native, jnative, fmt, seed, p_mquant,
     want_fmt, want_tr, want_seq = jnative.parse_tensors(data)
     assert got_fmt is TFORMATS[fmt.name] and want_fmt is fmt
     np.testing.assert_array_equal(got_tr, want_tr)
-    assert set(got) == set(want_seq)
+    # the port's dict adds the packed levels (tests/test_torch_levels.py)
+    assert set(got) == set(want_seq) | set(PACKED_KEYS)
     for k in want_seq:
         assert got[k].dtype == want_seq[k].dtype, k
         np.testing.assert_array_equal(got[k], want_seq[k], err_msg=k)

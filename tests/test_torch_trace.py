@@ -136,10 +136,12 @@ def test_decode_spans(traced):
 
 def test_counters_of_the_jobs(traced):
     mbs = STREAMS * FRAMES * QCIF.num_mbs
-    # every copy stays on the CPU: no copy counter moves
+    # every copy stays on the CPU: no copy counter moves; every decoded
+    # MB's levels crossed packed
     assert traced[5] == {"p64.encode.macroblocks": mbs,
                          "p64.serialize.streams": STREAMS,
-                         "p64.decode.macroblocks": mbs}
+                         "p64.decode.macroblocks": mbs,
+                         "p64.decode.packed_mbs": mbs}
 
 
 @pytest.mark.parametrize("streams", [1, 3])
@@ -336,7 +338,8 @@ DECODE_LOG = [
 ]
 DECODE_COUNTERS = {"p64.copy.h2d.pageable_bytes": 900,
                    "p64.copy.d2h.pageable_bytes": 700,
-                   "p64.decode.macroblocks": 4}
+                   "p64.decode.macroblocks": 4,
+                   "p64.decode.packed_mbs": 4}
 # encode: replays at 1.3-2.0 and 5.3-6.0 ms, one more kernel at 3.0-3.2 ms;
 # idle under symbols and serialize: 2.1-3.0, 3.2-3.6 and 6.1-7.6 ms
 ENCODE_TRACE = ([(1.25, 1.3, 2.0), (5.25, 5.3, 6.0)], [(3.0, 3.2)])
@@ -363,6 +366,8 @@ READERS = [
      100 * (0.8 + 1.0) / 10),
     ("host_card_bytes_per_mb.decode", DECODE_LOG, DECODE_COUNTERS,
      DECODE_TRACE, 400.0),
+    ("packed_mb_share.decode", DECODE_LOG, DECODE_COUNTERS, DECODE_TRACE,
+     1.0),
 ]
 
 
@@ -415,6 +420,18 @@ def test_reader_reads_none_without_its_spans(monkeypatch, name, rows,
     _program(monkeypatch, _log(rows), counters)
     assert read(_reading(_events(launches, extra),
                          len(launches) + 1)) is None
+
+
+@pytest.mark.parametrize("drop", ["p64.decode.packed_mbs",
+                                  "p64.decode.macroblocks"])
+def test_packed_share_reads_none_without_its_counters(monkeypatch, drop):
+    """A program without the packed-levels counter (the parent of the
+    change that added it) or without decoded macroblocks reads nothing."""
+    counters = {k: v for k, v in DECODE_COUNTERS.items() if k != drop}
+    _program(monkeypatch, _log(DECODE_LOG), counters)
+    launches, extra = DECODE_TRACE
+    read = harness.Manifest().reader("packed_mb_share.decode")
+    assert read(_reading(_events(launches, extra), len(launches))) is None
 
 
 @pytest.mark.parametrize("cell", ["encode", "decode"])
