@@ -686,8 +686,10 @@ def serialize_streams(cfg: EncoderConfig,
     threads (utils.fan_map; ctypes releases the GIL), which also checks
     the symbols it writes.  Counters of what the rate control did:
     `p64.rate.mquant_mbs`, the MBs written with an MQUANT MTYPE (the
-    engine counts them per stream), and `p64.rate.stuffing_codes`, the sum
-    of `n_stuff`.  Outputs as outputs_to_symbols takes them.
+    engine counts them per stream), `p64.rate.stuffing_codes`, the sum
+    of `n_stuff`, and `p64.rate.coded_frames`, the sum of `frame_coded`
+    (the frames the buffer law did not skip).  Outputs as
+    outputs_to_symbols takes them.
     Raises ValueError on symbols out of range (the messages of the
     per-stream engine's checks) and AssertionError where a stream's bit
     count differs from its `total_bits`: the device length model and the
@@ -709,6 +711,7 @@ def serialize_streams(cfg: EncoderConfig,
         trace.count("p64.rate.mquant_mbs", int(batch.mquant_mbs.sum()))
         trace.count("p64.rate.stuffing_codes",
                     int(host["n_stuff"].sum(dtype=np.int64)))
+        trace.count("p64.rate.coded_frames", int(host["frame_coded"].sum()))
     return [r for part in parts for r in part]
 
 

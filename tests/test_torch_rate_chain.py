@@ -614,4 +614,5 @@ def test_the_metric_is_listed_for_the_rate_cells_only():
     for cell in m.cells:
         listed = READER in [x["name"] for x in m.per_layer(cell)]
         assert listed == (cell in ("cif_rc_p30_mq3.encode",
-                                   "cif_rc_p16.encode")), cell
+                                   "cif_rc_p16.encode",
+                                   "qcif_p2.encode")), cell

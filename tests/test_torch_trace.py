@@ -136,10 +136,11 @@ def test_decode_spans(traced):
 
 def test_counters_of_the_jobs(traced):
     mbs = STREAMS * FRAMES * QCIF.num_mbs
-    # every copy stays on the CPU: no copy counter moves; every decoded
-    # MB's levels crossed packed
+    # every copy stays on the CPU: no copy counter moves; a fixed
+    # quantizer codes every frame; every decoded MB's levels crossed packed
     assert traced[5] == {"p64.encode.macroblocks": mbs,
                          "p64.serialize.streams": STREAMS,
+                         "p64.rate.coded_frames": STREAMS * FRAMES,
                          "p64.decode.macroblocks": mbs,
                          "p64.decode.packed_mbs": mbs}
 
