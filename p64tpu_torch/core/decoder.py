@@ -15,7 +15,8 @@ them to the device once, expands the levels there with one kernel
 `lax.scan` under `vmap`) carrying the (S, H, W) planes: on a CUDA device
 as one captured reconstruct step replayed per frame (core.graphs, the
 counterpart of the reference's jitted `_decode_scan`), on the CPU as a
-host loop.  The planes stay on the device until one copy back at the end.
+host loop.  The planes stay on the device until one copy back at the end,
+into pinned host memory on a CUDA device.
 """
 
 from __future__ import annotations
@@ -262,6 +263,17 @@ def decode_seq_batch(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
     seqs: parse_to_tensors seq dicts, all of format fmt and of one frame
     count.  Returns, per stream, (y, cb, cr) uint8 (T, ...) arrays.
 
+    On a CUDA device the arrays are views of three pinned blocks (one per
+    plane, each (S, T, ...)) from torch's caching host allocator, filled
+    by one non_blocking copy each on the current stream.  The allocator
+    hands a block out again only once every tensor on it is freed, and an
+    array holds its tensor as its base, so a returned array never views a
+    block a later call writes; and a caller that keeps one stream's planes
+    keeps the whole batch's blocks.  The blocks are taken while the
+    replays run, so pinning a fresh one (a first call, or one whose
+    earlier blocks are all still held) overlaps the card's work.  On the
+    CPU the arrays view the reconstructed planes themselves.
+
     Spans (trace): the stack (stack_seqs), the replays (core.graphs), then
     `p64.decode.wait` for the card to finish them and
     `p64.decode.planes_out` for the copy of the planes to host memory."""
@@ -269,13 +281,19 @@ def decode_seq_batch(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
     trace.count("p64.decode.macroblocks",
                 batch["levels8"].shape[0] * len(seqs) * fmt.num_mbs)
     planes = reconstruct_seq(fmt, batch)
+    on_card = planes[0].is_cuda
+    host = (tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                  for p in planes) if on_card else planes)
     with trace.span("p64.decode.wait"):
-        if planes[0].is_cuda:
+        if on_card:
             torch.cuda.current_stream(planes[0].device).synchronize()
     with trace.span("p64.decode.planes_out"):
-        for p in planes:
-            trace.count_copy(p, torch.device("cpu"), p.nbytes)
-        y, cb, cr = (p.cpu().numpy() for p in planes)
+        if on_card:
+            for h, p in zip(host, planes):
+                trace.count_copy(p, h, p.nbytes)
+                h.copy_(p, non_blocking=True)
+            torch.cuda.current_stream(planes[0].device).synchronize()
+        y, cb, cr = (h.numpy() for h in host)
     return [(y[i], cb[i], cr[i]) for i in range(len(seqs))]
 
 

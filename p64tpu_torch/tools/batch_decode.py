@@ -6,8 +6,9 @@
 Port of `p64tpu/tools/batch_decode.py`.  The host VLC parse fans across
 threads straight into stacked symbol arrays (core.decoder
 .parse_to_tensors, in the C++ engine); reconstruction batches every group
-of equal-shaped streams into one `decode_seq_batch` call on the device.
-One .y4m per input is written to outdir.
+of equal-shaped streams into one `decode_seq_batch` call on the device,
+whose planes come back in pinned host memory from a card.  One .y4m per
+input is written to outdir.
 """
 
 from __future__ import annotations

@@ -369,6 +369,8 @@ READERS = [
      DECODE_TRACE, 400.0),
     ("packed_mb_share.decode", DECODE_LOG, DECODE_COUNTERS, DECODE_TRACE,
      1.0),
+    ("planes_pinned_share.decode", DECODE_LOG, DECODE_COUNTERS,
+     DECODE_TRACE, 0.0),
 ]
 
 
@@ -433,6 +435,25 @@ def test_packed_share_reads_none_without_its_counters(monkeypatch, drop):
     launches, extra = DECODE_TRACE
     read = harness.Manifest().reader("packed_mb_share.decode")
     assert read(_reading(_events(launches, extra), len(launches))) is None
+
+
+@pytest.mark.parametrize("pinned,pageable,want", [
+    (700, 0, 1.0), (300, 100, 0.75), (0, 0, None), (None, None, None)])
+def test_pinned_share_reads_the_copies_back(monkeypatch, pinned, pageable,
+                                            want):
+    """The planes out's share of pinned bytes; nothing where no byte
+    crossed back, as in a decode on the CPU.  The copies to the card do
+    not count."""
+    counters = {k: v for k, v in DECODE_COUNTERS.items()
+                if not k.startswith("p64.copy.d2h.")}
+    if pinned is not None:
+        counters.update({"p64.copy.d2h.pinned_bytes": pinned,
+                         "p64.copy.d2h.pageable_bytes": pageable})
+    _program(monkeypatch, _log(DECODE_LOG), counters)
+    launches, extra = DECODE_TRACE
+    read = harness.Manifest().reader("planes_pinned_share.decode")
+    got = read(_reading(_events(launches, extra), len(launches)))
+    assert got == (None if want is None else pytest.approx(want))
 
 
 @pytest.mark.parametrize("cell", ["encode", "decode"])

@@ -230,7 +230,7 @@ DECODE_READERS = {
     "decode_step_ms", "device_idle_pct.decode", "native_parse_ms.decode",
     "stack_ms.decode", "host_wait_ms.decode", "planes_out_ms.decode",
     "parse_idle_pct.decode", "host_card_bytes_per_mb.decode",
-    "packed_mb_share.decode"}
+    "packed_mb_share.decode", "planes_pinned_share.decode"}
 
 
 def test_the_configuration():
