@@ -8,7 +8,8 @@ traced run, and in `check` compares what it kept with the plain reference
 called only through `p64tpu_torch.tools.batch_encode.encode_resilient`,
 `distrib.mesh`, `core.encoder.outputs_to_host`/`serialize_streams`,
 `core.decoder.parse_to_tensors`/`stack_seqs`/`decode_seq_batch`,
-`native.load` and `utils.fan_map`.
+`native.load` and `utils.fan_map`; it is told of a stream it refuses by
+`entropy.parse.StreamError`.
 
 `reference_job(precision)` is the entry's job done by the reference at a
 lower precision of its transforms: the control (`control.py`) puts it in
@@ -29,11 +30,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import channel as line
 from .content import make_content
 from .reference import constants as ref_constants
 from .reference import dct as ref_dct
 from .reference import decode as ref_decode
 from .reference import encoder as ref_encoder
+from .reference import playback as ref_playback
 from .reference import ratecontrol as ref_ratecontrol
 from .reference import serialize as ref_serialize
 
@@ -262,7 +265,25 @@ class BatchDecode(Entry):
     encoder's of the seeded content, made in set-up or read from the
     checkout's cache; its reconstruction, made again after the window, is
     the answer.  The planes of `keep_jobs` jobs drawn from the seed are
-    kept and compared."""
+    kept and compared.
+
+    A configuration may state one key more, read here alone: `"channel":
+    {"bit_error_rate": p}` sends the streams over a line that flips bits
+    (`channel.py`) after they are made or read from the cache, and the
+    port then parses with its scan for start codes, as
+    `tools/batch_decode.py -e` does.  The answer for a damaged stream is
+    the reference's own resync decode of its damaged bytes
+    (`reference/playback.py`), and where the reference has none
+    (`reference/parse.py::refusal`) the port has to refuse the stream too.
+    A stream the port refuses (a StreamError) is None in the job's result.
+    Without a channel it counts as failed; with one, the check after the
+    window holds the port's refusals to the reference's."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.channel = self.config.get("channel")
+        self.bit_error_rate = (None if self.channel is None
+                               else line.check(self.channel))
 
     def setup(self) -> None:
         from p64tpu_torch.native import load
@@ -271,6 +292,14 @@ class BatchDecode(Entry):
         self.log(f"the reference's streams, {how}, "
                  f"{time.perf_counter() - t:.3f} s")
         self.datas = [d for d, _ in self.inputs]
+        #: the streams the port refused in any job
+        self.refused: set = set()
+        if self.channel is not None:
+            self.datas, flips = line.flip(self.inputs, self.bit_error_rate,
+                                          self.seed)
+            self.log(f"channel: bit error rate {self.bit_error_rate}, "
+                     f"{sum(flips)} bits flipped over {len(flips)} "
+                     f"streams; per stream {flips}")
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -281,17 +310,25 @@ class BatchDecode(Entry):
         self.groups = 0
         t = time.perf_counter()
         self.job()
-        self.log(f"warm-up job {time.perf_counter() - t:.3f} s")
+        self.log(f"warm-up job {time.perf_counter() - t:.3f} s, "
+                 f"{self.group_count} groups of equal frame count, "
+                 f"{self.groups} replays")
+
+    def _clean_key(self) -> str:
+        """The cache's key for the clean streams: every key of the
+        configuration but the line, the mix's sizes, the seed, the device
+        kind and the reference."""
+        config = {k: v for k, v in self.config.items() if k != "channel"}
+        return hashlib.sha256(json.dumps(
+            [config, self.streams, self.frames, self.traffic["noise"],
+             self.seed, self.device.type, reference_digest()],
+            sort_keys=True).encode()).hexdigest()[:32]
 
     def _inputs(self) -> Tuple[List[Tuple[bytes, int]], str]:
         """The reference's streams of this seed's content, from the cache
         where it holds them for this configuration, mix, seed, device kind
         and reference; else made and kept there."""
-        key = hashlib.sha256(json.dumps(
-            [self.config, self.streams, self.frames, self.traffic["noise"],
-             self.seed, self.device.type, reference_digest()],
-            sort_keys=True).encode()).hexdigest()[:32]
-        path = os.path.join(self.cache_dir, f"streams-{key}.npz")
+        path = os.path.join(self.cache_dir, f"streams-{self._clean_key()}.npz")
         got = load_streams(path)
         if got is not None:
             return got, "cached"
@@ -299,19 +336,32 @@ class BatchDecode(Entry):
         save_streams(path, got)
         return got, "made"
 
-    def _parse(self):
+    def _parse_one(self, data: bytes):
         from p64tpu_torch.core.decoder import parse_to_tensors
+        from p64tpu_torch.entropy.parse import StreamError
+        try:
+            return (parse_to_tensors(data) if self.channel is None
+                    else parse_to_tensors(data, resync=True))
+        except StreamError:
+            return None
+
+    def _parse(self):
         from p64tpu_torch.utils import fan_map
-        parsed = fan_map(parse_to_tensors, self.datas)
+        parsed = fan_map(self._parse_one, self.datas,
+                         name="parse_to_tensors")
         groups: Dict[tuple, List[int]] = {}
-        for i, (fmt, _, seq) in enumerate(parsed):
-            groups.setdefault((fmt, seq["levels8"].shape[0]), []).append(i)
+        for i, got in enumerate(parsed):
+            if got is not None:
+                fmt, _, seq = got
+                groups.setdefault((fmt, seq["levels8"].shape[0]),
+                                  []).append(i)
         return parsed, groups
 
     def job(self):
         from p64tpu_torch.core.decoder import decode_seq_batch
         parsed, groups = self._parse()
         self.groups = sum(t for _, t in groups)
+        self.group_count = len(groups)
         planes: List[Optional[tuple]] = [None] * len(parsed)
         for (fmt, _), idxs in groups.items():
             for i, p in zip(idxs, decode_seq_batch(
@@ -322,7 +372,11 @@ class BatchDecode(Entry):
     def tally(self, result) -> Tuple[int, int, int]:
         done = [p for p in result if p is not None]
         mbs = sum(p[0].shape[0] for p in done) * self.mbs
-        return len(result), len(result) - len(done), mbs
+        refused = {i for i, p in enumerate(result) if p is None}
+        self.refused |= refused
+        # over a line, a refusal is judged against the reference's (check)
+        return (len(result), len(refused) if self.channel is None else 0,
+                mbs)
 
     def keep(self, result) -> None:
         """A reservoir sample of keep_jobs jobs, drawn from the seed."""
@@ -355,34 +409,56 @@ class BatchDecode(Entry):
             del batches
         return {"parse": out}
 
+    def _played(self) -> List[Optional[tuple]]:
+        """The reference's resync decode of each damaged stream, or None
+        where it refuses the stream."""
+        return ref_playback.play(ref_playback.parse_streams(self.datas),
+                                 self.device, REFERENCE_STREAMS)
+
     def check(self) -> List[Check]:
-        """Every stream of every kept job against the reference's
-        reconstruction of its coded frames: pixels that differ (a stream
-        of the wrong shape counts all its pixels).  The reference encodes
+        """Every stream of every kept job against the answer: pixels that
+        differ (a stream of the wrong shape counts all its pixels, and so
+        does one answered where the answer is a refusal).  Without a
+        channel the answer is the reference's reconstruction of its coded
+        frames; with one, the reference's decode of the damaged bytes, with
+        `streams_refused`, the streams the port refused, held to the number
+        the reference refuses, and `refused_alone`, those of them that the
+        reference decodes, to none.  The reference encodes
         the seed's content again, and its streams have to be the ones
         decoded."""
-        streams, recon = reference_encode(
-            self.config, self.content(),
-            keep=ref_encoder.RECON_KEYS + ("frame_coded",))
+        keep = (() if self.channel is not None
+                else ref_encoder.RECON_KEYS + ("frame_coded",))
+        streams, recon = reference_encode(self.config, self.content(),
+                                          keep=keep)
         if streams != self.inputs:
             raise AssertionError("the decoded streams are not the "
                                  "reference's of this seed")
-        differ = 0
-        for job in self.kept:
-            for s, got in enumerate(job):
+        if self.channel is not None:
+            played = self._played()
+
+            def want(s):
+                return played[s]
+        else:
+            def want(s):
                 coded = recon["frame_coded"][s]
-                for p, key in zip(got if got is not None else (None,) * 3,
-                                  ref_encoder.RECON_KEYS):
-                    want = recon[key][s][coded]
-                    if p is None or p.shape != want.shape:
-                        differ += want.size
-                    else:
-                        differ += int(np.count_nonzero(p != want))
-        return [("pixels_differ", differ, 0)]
+                return tuple(recon[key][s][coded]
+                             for key in ref_encoder.RECON_KEYS)
+        differ = sum(_pixels_off(got, want(s)) for job in self.kept
+                     for s, got in enumerate(job))
+        checks = [("pixels_differ", differ, 0)]
+        if self.channel is not None:
+            refused = {i for i, p in enumerate(played) if p is None}
+            checks += [("streams_refused", len(self.refused), len(refused)),
+                       ("refused_alone", len(self.refused - refused), 0)]
+        return checks
 
     def reference_job(self, precision: str) -> List[tuple]:
-        """The reference's planes of the coded frames of each stream, its
-        reconstruction from the streams' symbols at `precision`."""
+        """The reference's planes of each stream at `precision`: of the
+        coded frames, its reconstruction from the streams' symbols; with a
+        channel, its decode of the damaged bytes."""
+        if self.channel is not None:
+            with ref_dct.precision(precision):
+                return self._played()
         _, out = reference_encode(
             self.config, self.content(),
             keep=ref_serialize.SYMBOL_KEYS)
@@ -399,6 +475,18 @@ class BatchDecode(Entry):
         coded = out["frame_coded"]
         return [(y[s][coded[s]], cb[s][coded[s]], cr[s][coded[s]])
                 for s in range(self.streams)]
+
+
+def _pixels_off(got: Optional[tuple], want: Optional[tuple]) -> int:
+    """Pixels of one stream's planes off the answer's (all of a plane of
+    another shape; all of the planes where one side has none)."""
+    if want is None:
+        return 0 if got is None else sum(p.size for p in got)
+    if got is None:
+        return sum(w.size for w in want)
+    return sum(w.size if p.shape != w.shape
+               else int(np.count_nonzero(p != w))
+               for p, w in zip(got, want))
 
 
 ENTRIES = {"batch_encode": BatchEncode, "batch_decode": BatchDecode}

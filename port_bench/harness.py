@@ -164,7 +164,7 @@ def traced_jobs(entry, n_jobs: int):
                     torch.cuda.synchronize(entry.device)
         seconds = time.perf_counter() - t0
         trace = tracing.read_trace(tracing.events_from_profiler(prof),
-                                   n_jobs * entry.replays_per_job())
+                                   n_jobs * entry.replays_per_job(), n_jobs)
         if trace.whole or entry.device.type != "cuda":
             break
         counts = sorted({r.kernels for r in trace.replays})

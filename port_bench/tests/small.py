@@ -1,7 +1,8 @@
 """A copy of the benchmark at a size the CPU tests can hold: the same
-files, with every cell's picture QCIF, a few streams and frames, and the
-rate-controlled configuration at 64 kbit/s so that its buffer law binds at
-that size."""
+files, with every cell's picture QCIF, a few streams and frames, and each
+rate-controlled configuration's bit rate scaled by QCIF's share of its
+picture (a CIF configuration's to a quarter), so that its buffer law
+binds as hard at that size, bits per macroblock alike."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import os
 import shutil
 
 from port_bench import harness
+from port_bench.reference.constants import FORMATS, QCIF
 
 SMALL_TRAFFIC = dict(streams=3, frames=3, chunk=2, trace_jobs=1, span_jobs=1)
 
@@ -31,9 +33,11 @@ def small_checkout(root: str) -> harness.Manifest:
         path = os.path.join(root, m.configs[m.cells[cell]["config"]]["file"])
         with open(path) as f:
             config = json.load(f)
+        picture = FORMATS[config["format"]]
         config["format"] = "QCIF"
         if config["rate"].get("bit_rate"):
-            config["rate"]["bit_rate"] = 64000
+            config["rate"]["bit_rate"] = (config["rate"]["bit_rate"]
+                                          * QCIF.num_mbs // picture.num_mbs)
         with open(path, "w") as f:
             json.dump(config, f)
     return harness.Manifest(root)

@@ -58,6 +58,50 @@ def test_a_trace_that_lost_a_kernel_is_not_read():
     assert not tracing.read_trace(evs, expected_replays=2).whole
 
 
+def test_jobs_of_programs_of_several_sizes_are_whole_job_by_job():
+    """A decode job replays one program per group size, whose kernel
+    counts may differ: each job has to repeat the first's."""
+    def trace(counts):
+        evs = window(0, 10_000 * US)
+        for i, k in enumerate(counts):
+            evs += replay(i + 1, i * 1000 * US, k)
+        return evs
+    assert tracing.read_trace(trace([3, 2, 3, 2]), 4, jobs=2).whole
+    assert tracing.read_trace(trace([3, 2, 2, 3, 2, 2]), 6, jobs=2).whole
+    # one job alone cannot tell a lost kernel from a program's count
+    assert not tracing.read_trace(trace([3, 2, 3, 2]), 4).whole
+    # a kernel lost in the second job, a launch lost, jobs cut unevenly
+    assert not tracing.read_trace(trace([3, 2, 3, 1]), 4, jobs=2).whole
+    assert not tracing.read_trace(trace([3, 2, 3]), 4, jobs=2).whole
+    assert not tracing.read_trace(trace([3, 2, 3]), 3, jobs=2).whole
+    # and one program's replays stay whole as they were
+    assert tracing.read_trace(trace([3, 3, 3]), 3, jobs=3).whole
+    assert not tracing.read_trace(trace([3, 2, 3]), 3, jobs=3).whole
+
+
+def test_graph_builds_per_job_reads_the_span_log(monkeypatch):
+    from p64tpu_torch.trace import Span
+    from port_bench import spanlog
+    read = harness.Manifest().reader("graph_builds_per_job.decode")
+    evs = window(0, 10_000 * US) + replay(1, 0, 3) + replay(2, 10 * US, 3)
+    tr = tracing.read_trace(evs, expected_replays=2)
+    job, build = "p64.fan.parse_to_tensors", "p64.graphs.build"
+    spans = [Span(job, 100 * US, 200 * US, 1, 1, None, 1),
+             Span(build, 300 * US, 400 * US, 1, 2, None, 2),
+             Span(build, 450 * US, 500 * US, 1, 3, None, 3),
+             Span(job, 600 * US, 700 * US, 1, 4, None, 4),
+             Span(build, 800 * US, 900 * US, 2, 5, None, 5),
+             Span(build, 20_000 * US, 20_100 * US, 1, 6, None, 6)]
+    monkeypatch.setattr(spanlog, "program_log", lambda: (spans, {}))
+    reading = harness.Reading(tr, {}, {}, {})
+    # two builds on the jobs' thread inside the window, over two jobs
+    assert read(reading) == 1.0
+    monkeypatch.setattr(spanlog, "program_log", lambda: (spans[:1], {}))
+    assert read(reading) == 0.0
+    monkeypatch.setattr(spanlog, "program_log", lambda: (spans[1:3], {}))
+    assert read(reading) is None
+
+
 def test_gaps_are_named_by_the_innermost_host_event():
     evs = window(0, 100 * US) + [
         Event("aten::to", "cpu_op", 10 * US, 90 * US),

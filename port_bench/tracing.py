@@ -10,8 +10,10 @@ below runs on synthetic events in the CPU tests.  Rules:
   * a graph replay is a `cudaGraphLaunch`; each kernel it runs carries the
     launch's correlation id.  `torch.profiler` can lose kernel records
     under host load, so a trace is whole only when it holds every replay
-    the jobs made and the same number of kernels in each; a trace that is
-    not whole is taken again, not read;
+    the jobs made and the same number of kernels in each, or, where a job
+    replays programs of several sizes (a decode job's groups), the first
+    job's numbers replay by replay in every job; a trace that is not whole
+    is taken again, not read;
   * an idle gap is named by the host event that covered its midpoint,
     the innermost one (a runtime call or an operator), or "none" where the
     host was running Python outside any operator.
@@ -145,10 +147,19 @@ def replays(events: Sequence[Event],
     return out
 
 
-def is_whole(reps: Sequence[Replay], expected: int) -> bool:
-    """Every replay the jobs made, each with the same kernel count."""
-    counts = {r.kernels for r in reps}
-    return len(reps) == expected and len(counts) == 1 and 0 not in counts
+def is_whole(reps: Sequence[Replay], expected: int, jobs: int = 1) -> bool:
+    """Every replay the `jobs` jobs made, each with the same kernel count,
+    or each with the count of the same replay of the first job."""
+    counts = [r.kernels for r in reps]
+    if not counts or len(counts) != expected or 0 in counts:
+        return False
+    if len(set(counts)) == 1:
+        return True
+    if jobs < 2 or expected % jobs:
+        return False
+    per = expected // jobs
+    return all(counts[i:i + per] == counts[:per]
+               for i in range(per, expected, per))
 
 
 def kernel_mean_ns(events: Sequence[Event], name: str) -> Optional[float]:
@@ -213,7 +224,8 @@ class Trace:
         return None if ns is None else ns / 1e6
 
 
-def read_trace(events: List[Event], expected_replays: int) -> Trace:
+def read_trace(events: List[Event], expected_replays: int,
+               jobs: int = 1) -> Trace:
     bounds = window_bounds(events)
     if bounds is None:
         lo = min((e.start for e in events), default=0)
@@ -235,7 +247,7 @@ def read_trace(events: List[Event], expected_replays: int) -> Trace:
                       gaps.most_common(BREAKDOWN_ENTRIES)],
     }
     return Trace(events, hi - lo, busy_ns, reps,
-                 is_whole(reps, expected_replays), breakdown)
+                 is_whole(reps, expected_replays, jobs), breakdown)
 
 
 # ---------------------------------------------------------------------------
