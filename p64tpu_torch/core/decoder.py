@@ -17,6 +17,13 @@ as one captured reconstruct step replayed per frame (core.graphs, the
 counterpart of the reference's jitted `_decode_scan`), on the CPU as a
 host loop.  The planes stay on the device until one copy back at the end,
 into pinned host memory on a CUDA device.
+
+A batch's streams are padded to the next of BATCH_STREAMS (streams whose
+pictures code nothing), so that batches of any stream count share a few
+programs: a job of many groups, each of its own picture count and stream
+count, captures nothing once each size has been seen.  Streams in a batch
+are independent, so the padding changes no real stream's planes; it is
+never copied back.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 
 from .. import trace
 from ..spec.constants import MB_SIZE, Format
-from ..entropy.parse import ParsedFrame
+from ..entropy.parse import ParsedFrame, StreamError
 from ..kernels.levels_cuda import expand_levels
 from ..native import PACKED_KEYS, load
 from ..utils import fan_map
@@ -52,6 +59,12 @@ _STAGE = dict(nz_blocks=(np.uint64, torch.int64),
               mv=(np.int32, torch.int32), fil=(np.bool_, torch.bool),
               nz_mbs=(np.uint8, torch.uint8), nz_levels=(np.int8, torch.int8))
 _ALIGN = 16
+
+#: the stream counts a decode batch is padded to; a larger batch is padded
+#: to a multiple of the last
+BATCH_STREAMS = tuple(1 << k for k in range(10))
+#: the decode's programs: one per batch size for each format
+PROGRAMS = graphs.ProgramCache(2 * len(BATCH_STREAMS))
 
 Planes = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
@@ -87,11 +100,21 @@ def _check_mv(fmt: Format, mv: np.ndarray) -> None:
                          f"reference outside the {fmt.name} picture")
 
 
-def _stage_layout(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]]
-                  ) -> Tuple[Dict[str, Tuple[int, int, tuple]], int]:
-    """Where each part of a batch lies in the staging buffer: key ->
-    (byte offset, bytes, shape), and the buffer's bytes."""
-    t, s, m = np.shape(seqs[0]["levels8"])[0], len(seqs), fmt.num_mbs
+def batch_streams(streams: int) -> int:
+    """The streams of the batch that decodes `streams` streams: the first
+    of BATCH_STREAMS that holds them, else the next multiple of the
+    last."""
+    for n in BATCH_STREAMS:
+        if streams <= n:
+            return n
+    return -(-streams // BATCH_STREAMS[-1]) * BATCH_STREAMS[-1]
+
+
+def _stage_layout(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
+                  s: int) -> Tuple[Dict[str, Tuple[int, int, tuple]], int]:
+    """Where each part of a batch of `s` streams lies in the staging
+    buffer: key -> (byte offset, bytes, shape), and the buffer's bytes."""
+    t, m = np.shape(seqs[0]["levels8"])[0], fmt.num_mbs
     nb = nv = 0
     for seq in seqs:
         total = np.asarray(seq["nz_offsets"])[-1]
@@ -119,12 +142,15 @@ def _sections(buf, layout: Mapping[str, Tuple[int, int, tuple]]) -> dict:
 
 
 def ship_packed(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
-                device: torch.device | str) -> Dict[str, torch.Tensor]:
+                device: torch.device | str, *,
+                streams: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """S equal-length parsed sequences -> their STACKED_KEYS as (T, S, ...)
     tensors on `device`, and their levels packed: the PACKED_KEYS but
     `nz_offsets` (nz_mbs (T, S, nMB), nz_blocks as int64, nz_levels) and
     nz_bases (T, S, 2), each (frame, stream)'s first block mask and first
-    level (kernels.levels_cuda).
+    level (kernels.levels_cuda).  With `streams` (at least S) the batch
+    holds that many streams, the ones past S all zeros: pictures that code
+    nothing.
 
     Everything is written into one staging buffer (pinned on a CUDA
     device) and copied to the device at once.  levels8 itself is never
@@ -142,36 +168,45 @@ def ship_packed(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
                          "one batch")
     if np.shape(seqs[0]["levels8"])[1] != fmt.num_mbs:
         raise ValueError(f"sequence is not {fmt.name}")
-    layout, nbytes = _stage_layout(fmt, seqs)
+    s = len(seqs)
+    streams = s if streams is None else streams
+    if streams < s:
+        raise ValueError(f"a batch of {streams} streams cannot hold {s}")
+    layout, nbytes = _stage_layout(fmt, seqs, streams)
     buf = torch.empty(nbytes, dtype=torch.uint8,
                       pin_memory=dev.type == "cuda")
     host = _sections(buf.numpy(), layout)
+    for k in STACKED_KEYS + ("nz_mbs", "nz_bases"):
+        host[k][:, s:] = 0
     for k in STACKED_KEYS + ("nz_mbs",):
-        np.stack([s[k] for s in seqs], axis=1, out=host[k])
+        np.stack([q[k] for q in seqs], axis=1, out=host[k][:, :s])
     _check_mv(fmt, host["mv"])
     for k in ("nz_blocks", "nz_levels"):
-        np.concatenate([s[k] for s in seqs], out=host[k])
-    np.stack([s["nz_offsets"][:-1] for s in seqs], axis=1,
-             out=host["nz_bases"])
-    firsts = np.cumsum([s["nz_offsets"][-1] for s in seqs], axis=0)
-    host["nz_bases"][:, 1:] += firsts[:-1]
+        np.concatenate([q[k] for q in seqs], out=host[k])
+    np.stack([q["nz_offsets"][:-1] for q in seqs], axis=1,
+             out=host["nz_bases"][:, :s])
+    firsts = np.cumsum([q["nz_offsets"][-1] for q in seqs], axis=0)
+    host["nz_bases"][:, 1:s] += firsts[:-1]
     trace.count_copy(buf, dev, nbytes)
     return _sections(buf.to(dev, non_blocking=True), layout)
 
 
 def stack_seqs(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
-               device: torch.device | str) -> Dict[str, torch.Tensor]:
+               device: torch.device | str, *,
+               streams: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """S equal-length parsed sequences -> their SEQ_KEYS as (T, S, ...)
-    tensors on `device`: the levels cross packed (ship_packed), and
+    tensors on `device` ((T, streams, ...) with `streams`, the streams
+    past S coding nothing): the levels cross packed (ship_packed), and
     `kernels.levels_cuda.expand_levels` makes the dense levels8 there, one
     launch on a CUDA device."""
     with trace.span("p64.decode.stack"):
-        parts = ship_packed(fmt, seqs, device)
+        parts = ship_packed(fmt, seqs, device, streams=streams)
         batch = {k: parts[k] for k in STACKED_KEYS}
         batch["levels8"] = expand_levels(parts["nz_mbs"], parts["nz_blocks"],
                                          parts["nz_levels"],
                                          parts["nz_bases"])
-        trace.count("p64.decode.packed_mbs", parts["nz_mbs"].numel())
+        t, _, m = parts["nz_mbs"].shape
+        trace.count("p64.decode.packed_mbs", t * len(seqs) * m)
         return {k: batch[k] for k in SEQ_KEYS}
 
 
@@ -218,7 +253,7 @@ def reconstruct_seq(fmt: Format, batch: Mapping[str, torch.Tensor],
 
 def reconstruct_seq_graphed(fmt: Format, batch: Mapping[str, torch.Tensor],
                             init: Optional[Tuple[torch.Tensor, ...]] = None,
-                            cache: graphs.ProgramCache = graphs.PROGRAMS
+                            cache: graphs.ProgramCache = PROGRAMS
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """reconstruct_seq through `core.graphs`: one program per (fmt, S,
@@ -261,7 +296,9 @@ def decode_seq_batch(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
     """Reconstruct many equal-length streams in one batch on `device`.
 
     seqs: parse_to_tensors seq dicts, all of format fmt and of one frame
-    count.  Returns, per stream, (y, cb, cr) uint8 (T, ...) arrays.
+    count.  Returns, per stream, (y, cb, cr) uint8 (T, ...) arrays.  The
+    batch holds batch_streams(S) streams; only the planes of the S given
+    ones are copied back.
 
     On a CUDA device the arrays are views of three pinned blocks (one per
     plane, each (S, T, ...)) from torch's caching host allocator, filled
@@ -276,11 +313,20 @@ def decode_seq_batch(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
 
     Spans (trace): the stack (stack_seqs), the replays (core.graphs), then
     `p64.decode.wait` for the card to finish them and
-    `p64.decode.planes_out` for the copy of the planes to host memory."""
-    batch = stack_seqs(fmt, seqs, device)
-    trace.count("p64.decode.macroblocks",
-                batch["levels8"].shape[0] * len(seqs) * fmt.num_mbs)
-    planes = reconstruct_seq(fmt, batch)
+    `p64.decode.planes_out` for the copy of the planes to host memory.
+    Counters: `p64.decode.macroblocks` and `p64.decode.gobs` of the S
+    streams, `p64.decode.padded_mbs` of the padding, and of the seqs that
+    carry their `damage` words, `p64.decode.damaged_gobs` and
+    `p64.decode.damaged_pictures`."""
+    s = len(seqs)
+    streams = batch_streams(s)
+    batch = stack_seqs(fmt, seqs, device, streams=streams)
+    t = batch["levels8"].shape[0]
+    trace.count("p64.decode.macroblocks", t * s * fmt.num_mbs)
+    trace.count("p64.decode.padded_mbs", t * (streams - s) * fmt.num_mbs)
+    if trace.enabled():
+        _count_damage(fmt, seqs)
+    planes = tuple(p[:s] for p in reconstruct_seq(fmt, batch))
     on_card = planes[0].is_cuda
     host = (tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
                   for p in planes) if on_card else planes)
@@ -294,7 +340,22 @@ def decode_seq_batch(fmt: Format, seqs: Sequence[Mapping[str, np.ndarray]],
                 h.copy_(p, non_blocking=True)
             torch.cuda.current_stream(planes[0].device).synchronize()
         y, cb, cr = (h.numpy() for h in host)
-    return [(y[i], cb[i], cr[i]) for i in range(len(seqs))]
+    return [(y[i], cb[i], cr[i]) for i in range(s)]
+
+
+def _count_damage(fmt: Format,
+                  seqs: Sequence[Mapping[str, np.ndarray]]) -> None:
+    """The GOBs of a batch's pictures, and of the seqs with `damage` words
+    (parse_to_tensors), the damaged GOBs and pictures."""
+    t = np.shape(seqs[0]["levels8"])[0]
+    trace.count("p64.decode.gobs", t * len(seqs) * fmt.num_gobs)
+    words = [q["damage"] for q in seqs if q.get("damage") is not None]
+    if not words:
+        return
+    damage = np.concatenate(words)
+    gobs = damage[:, None] >> np.arange(fmt.num_gobs) & 1
+    trace.count("p64.decode.damaged_gobs", int(gobs.sum()))
+    trace.count("p64.decode.damaged_pictures", int((damage >> 15 & 1).sum()))
 
 
 def decode_seq(fmt: Format, seq: Mapping[str, np.ndarray], *,
@@ -391,8 +452,14 @@ def parse_to_tensors(data: bytes, resync: bool = False):
     arrays decode_seq consumes, with no per-frame ParsedFrame objects
     (see native.binding.NativeBitIO.parse_tensors).
 
-    Returns (fmt, tr (T,) np.ndarray, seq dict)."""
-    return load().parse_tensors(data, resync=resync)
+    Returns (fmt, tr (T,) np.ndarray, seq dict).  A stream it refuses
+    raises StreamError and, while tracing is on, adds one to
+    `p64.decode.refused_streams`."""
+    try:
+        return load().parse_tensors(data, resync=resync)
+    except StreamError:
+        trace.count("p64.decode.refused_streams", 1)
+        raise
 
 
 def parse_many(datas: Sequence[bytes]) -> List[List[ParsedFrame]]:

@@ -26,11 +26,13 @@ step -- as a CUDA graph once and replays it once per frame:
     sets up cuBLAS, whose first use would copy from the host inside the
     capture, which is an error;
   * programs are cached by key -- (config, streams, device) for the
-    encoder, (format, streams, device) for the decoder -- at most
-    MAX_PROGRAMS on each device, the least recently used on that device
-    released first: each holds its graph's private memory pool, one step's
-    intermediates, on its own device, so a program never evicts one on
-    another device (a mesh of many cards keeps one program per card).
+    encoder in PROGRAMS, at most MAX_PROGRAMS on each device; (format,
+    streams, device) for the decoder in a cache of its own
+    (`core.decoder.PROGRAMS`), room for each batch size it pads to in both
+    formats -- the least recently used on a device released first: each
+    holds its graph's private memory pool, one step's intermediates, on
+    its own device, so a program never evicts one on another device (a
+    mesh of many cards keeps one program per card).
 
 A failed warm-up, capture or replay raises and leaves nothing in the
 cache; nothing retries eagerly or moves to the CPU.
@@ -77,8 +79,8 @@ Tensors = Dict[str, torch.Tensor]
 #: with a leading stream axis
 Step = Callable[[Tensors, Tensors], Tuple[Tensors, Tensors]]
 
-#: programs kept at once on each device (each holds a private pool there;
-#: at 128 CIF streams one encoder step's intermediates take some GB)
+#: encoder programs kept at once on each device (each holds a private pool
+#: there; at 128 CIF streams one encoder step's intermediates take some GB)
 MAX_PROGRAMS = 4
 
 
@@ -297,7 +299,7 @@ class ProgramCache:
         self._programs.clear()
 
 
-#: the programs of the entry points
+#: the programs of the encoder's entry points
 PROGRAMS = ProgramCache()
 
 

@@ -23,9 +23,12 @@
 // wins.  A pack of the final state keeps that rule by construction, negative
 // slot-0 inter levels included.
 //
+// Beside the pack, p64_picture_starts counts a stream's picture start
+// codes, which size the parse's output buffers (native/binding.py).
+//
 // Built with the bit-I/O engine's flags (kernels/_build.py) into its own
 // library; plain C interface for ctypes, which releases the GIL, so the
-// parse threads pack their streams in parallel.
+// parse threads pack and count their streams in parallel.
 
 #include <stdint.h>
 #include <string.h>
@@ -94,6 +97,30 @@ int64_t p64_pack_levels(const int8_t* levels, int64_t frames, int32_t mbs,
   offsets[2 * frames] = n_blocks;
   offsets[2 * frames + 1] = n_values;
   return n_values;
+}
+
+// Picture start codes (15 zeros, a one, then GN 0000) at any bit position
+// of data[0..n), read as if ones came before it and zeros after it: at least
+// as many as the pictures any parse of it finds.  The 15 zeros of a code
+// cover exactly one whole zero byte k, and the code starts in the 8 bits
+// that end with byte k's first; so only the zero bytes are looked at, each
+// with the byte before it and the two after it.
+int64_t p64_picture_starts(const uint8_t* data, int64_t n) {
+  int64_t count = 0;
+  const uint8_t* end = data + n;
+  for (const uint8_t* z = data; z < end; ++z) {
+    z = static_cast<const uint8_t*>(
+        memchr(z, 0, static_cast<size_t>(end - z)));
+    if (!z) break;
+    // the byte before, the zero byte (bits 8..15, all 0) and two after
+    const uint32_t before = z > data ? z[-1] : 0xFF;
+    const uint32_t after1 = z + 1 < end ? z[1] : 0;
+    const uint32_t after2 = z + 2 < end ? z[2] : 0;
+    const uint32_t word = before << 24 | after1 << 8 | after2;
+    for (int shift = 4; shift < 12; ++shift)
+      count += ((word >> shift) & 0xFFFFF) == 0x10;
+  }
+  return count;
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Port of `p64tpu/native/binding.py` (which imports JAX through
 package's source, `csrc/bitio.cpp`, into `build/native/` by
 `kernels._build.build_native`, and beside it, from a source of the port's
 own (`csrc/levels_pack.cpp`), the level packer the decode ships its levels
-with, by `kernels._build.build_levels_pack`; a missing compiler or a
+with and the count of picture start codes that sizes the parse's buffers,
+by `kernels._build.build_levels_pack`; a missing compiler or a
 failed build raises, and nothing falls back to the Python serializer or
 parser.
 Contracts mirror the pure-Python implementations exactly
@@ -25,6 +26,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..spec import luts
 from ..spec.constants import CIF, QCIF, Format, ptype_value
 from ..core.blocks import transmission_order
@@ -111,6 +113,8 @@ class NativeBitIO:
         pack.p64_pack_levels.restype = C.c_int64
         pack.p64_pack_levels.argtypes = [_P, C.c_int64, C.c_int32,
                                          C.c_int64] + [_P] * 4
+        pack.p64_picture_starts.restype = C.c_int64
+        pack.p64_picture_starts.argtypes = [_P, C.c_int64]
         lib.p64_pack_symbols.restype = C.c_int64
         lib.p64_pack_symbols.argtypes = [_P, _P, C.c_int64, _P, C.c_int64]
         lib.p64_serialize.restype = C.c_int64
@@ -273,6 +277,12 @@ class NativeBitIO:
 
     # -- parse -------------------------------------------------------------
 
+    def picture_starts(self, buf: np.ndarray) -> int:
+        """The picture start codes in the uint8 stream `buf` at any bit
+        position (`csrc/levels_pack.cpp`): at least as many as the pictures
+        any parse of it finds."""
+        return int(self._pack.p64_picture_starts(_ptr(buf), len(buf)))
+
     _RAW_FIELDS = (("fmt", (), np.int32), ("tr", (), np.int32),
                    ("gq", (12,), np.int32), ("coded", (396,), np.uint8),
                    ("intra", (396,), np.uint8), ("mc", (396,), np.uint8),
@@ -284,19 +294,27 @@ class NativeBitIO:
 
     def _raw_parse(self, data: bytes, max_frames: int,
                    resync: bool = False):
-        """Invoke p64_parse with adaptively-grown output buffers.
+        """Invoke p64_parse with output buffers sized to the stream.
 
-        Starts at min(64, max_frames) frames and grows 4x on overflow --
-        eagerly allocating 4096-frame buffers costs more than the parse of
-        a short stream.  Returns (n, buffers dict); raises StreamError on
-        parse errors.  Single owner of the p64_parse argument-order
-        contract.
+        The first try holds as many frames as the stream has picture start
+        codes (picture_starts), bounded by max_frames: every picture the
+        engine parses begins with a start code of its own, so that count is
+        enough for any stream, damaged or not.  A try that still overflows
+        grows 4x.  The buffers are not zeroed: the engine initializes every
+        field of a frame when its picture header parses, and nothing past
+        the parsed frames is read.
+        While tracing is on, counts the bytes of every try's buffers as
+        `p64.parse.alloc_bytes`.  Returns (n, buffers dict); raises
+        StreamError on parse errors.  Single owner of the p64_parse
+        argument-order contract.
         """
         buf = np.frombuffer(data, np.uint8)
-        mf = min(64, max_frames)
+        mf = min(max(self.picture_starts(buf), 1), max_frames)
         while True:
-            out = {name: np.zeros((mf,) + shape, dt)
+            out = {name: np.empty((mf,) + shape, dt)
                    for name, shape, dt in self._RAW_FIELDS}
+            trace.count("p64.parse.alloc_bytes",
+                        sum(a.nbytes for a in out.values()))
             errpos = C.c_int64(0)
             n = self._lib.p64_parse(
                 C.byref(self._dec_t), _ptr(buf), len(data), mf,
@@ -324,10 +342,12 @@ class NativeBitIO:
         an uncoded MB of a damaged GOB can keep the MV of a failed
         re-parse, and reconstructs with it, as in the reference), and the
         PACKED_KEYS of levels8 (pack_levels), packed on the calling
-        thread.  Skips the per-frame ParsedFrame construction.  Raises
-        StreamError on an empty stream and on mixed CIF/QCIF.
-        resync=True enables start-code error recovery (damage flags are
-        not surfaced on this path).
+        thread, and `damage` (n,) int32, each frame's damage word: bit 15
+        where the picture is damaged, bit g where its GOB g is (all zero
+        for a strict parse, which raises on damage instead).  Skips the
+        per-frame ParsedFrame construction.  Raises StreamError on an empty
+        stream and on mixed CIF/QCIF.  resync=True enables start-code
+        error recovery.
         """
         n, out = self._raw_parse(data, max_frames, resync=resync)
         if n == 0:
@@ -348,6 +368,7 @@ class NativeBitIO:
             intra=(out["intra"][:n, :m] != 0) & coded,
             mv=out["mv"][:n, :m],
             fil=(out["fil"][:n, :m] != 0) & coded,
+            damage=out["damage"][:n].copy(),
         )
         seq.update(self.pack_levels(seq["levels8"]))
         return fmt, out["tr"][:n].copy(), seq

@@ -9,6 +9,11 @@ threads straight into stacked symbol arrays (core.decoder
 of equal-shaped streams into one `decode_seq_batch` call on the device,
 whose planes come back in pinned host memory from a card.  One .y4m per
 input is written to outdir.
+
+A stream the parser refuses (a StreamError: no picture, two picture
+formats, or with strict parsing any error) gets no .y4m; the others are
+decoded and written all the same, and the exit code is then 1, as
+`batch_encode` reports streams that failed.
 """
 
 from __future__ import annotations
@@ -54,29 +59,41 @@ def main(argv=None) -> int:
         with open(p, "rb") as f:
             datas.append(f.read())
 
+    def parse_one(data):
+        try:
+            return parse_to_tensors(data, resync=args.resync)
+        except StreamError as e:
+            return e
+
     load()  # build/load the engine once before fanning out
     t0 = time.perf_counter()
-    try:
-        parsed = fan_map(
-            lambda d: parse_to_tensors(d, resync=args.resync), datas)
-    except StreamError as e:
-        print(f"batch_decode: invalid H.261 stream: {e}", file=sys.stderr)
-        return 1
+    parsed = fan_map(parse_one, datas)
     t_parse = time.perf_counter() - t0
+    refused = []
+    for path, got in zip(paths, parsed):
+        if isinstance(got, StreamError):
+            refused.append(path)
+            print(f"batch_decode: {path}: invalid H.261 stream: {got}",
+                  file=sys.stderr)
 
     os.makedirs(args.outdir, exist_ok=True)
     t0 = time.perf_counter()
     # group equal-shaped streams into one batched decode each
     groups = {}
-    for i, (fmt, _, seq) in enumerate(parsed):
-        groups.setdefault((fmt, seq["levels8"].shape[0]), []).append(i)
+    for i, got in enumerate(parsed):
+        if not isinstance(got, StreamError):
+            fmt, _, seq = got
+            groups.setdefault((fmt, seq["levels8"].shape[0]), []).append(i)
     planes = [None] * len(parsed)
     for (fmt, _), idxs in groups.items():
         for i, p in zip(idxs, decode_seq_batch(
                 fmt, [parsed[i][2] for i in idxs], device=device)):
             planes[i] = p
     n_frames = 0
-    for path, (fmt, _, _), (y, cb, cr) in zip(paths, parsed, planes):
+    for path, got, p in zip(paths, parsed, planes):
+        if p is None:
+            continue
+        fmt, (y, cb, cr) = got[0], p
         n_frames += y.shape[0]
         out = os.path.join(
             args.outdir,
@@ -86,9 +103,13 @@ def main(argv=None) -> int:
             print(f"{out}: {y.shape[0]} frames {fmt.name}", file=sys.stderr)
     t_dev = time.perf_counter() - t0
     if args.verbose:
-        print(f"{len(paths)} streams, {n_frames} frames: parse "
-              f"{t_parse * 1e3:.0f} ms, decode+write {t_dev * 1e3:.0f} ms "
-              f"on {device}", file=sys.stderr)
+        print(f"{len(paths) - len(refused)} streams, {n_frames} frames: "
+              f"parse {t_parse * 1e3:.0f} ms, decode+write "
+              f"{t_dev * 1e3:.0f} ms on {device}", file=sys.stderr)
+    if refused:
+        print(f"{len(refused)} stream(s) REFUSED: " + " ".join(refused),
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -393,6 +393,32 @@ def test_replayed_reconstruct_equals_eager(cuda):
 
 
 @pytest.mark.cuda
+def test_a_decode_job_of_many_group_sizes_captures_only_in_its_first(cuda):
+    """decode_seq_batch on the card over groups of 1 to 17 streams, as the
+    benchmark's decode entry calls it, twice: the six group sizes pad to
+    five programs, the second pass captures none, and every plane equals
+    the CPU decode."""
+    from p64tpu_torch.control.ratecontrol import RateConfig
+
+    cfg = encoder.EncoderConfig(fmt=QCIF, search=15,
+                                rate=RateConfig(fixed_quant=10))
+    datas, _, _ = encoder.encode_to_bytes(cfg, _qcif_batch(3, 4),
+                                          device="cpu")
+    parsed = [decoder.parse_to_tensors(d)[2] for d in datas]
+    groups = [[parsed[i % 3] for i in range(n)] for n in (1, 3, 5, 7, 9, 17)]
+    decoder.PROGRAMS.clear()
+    builds = decoder.PROGRAMS.builds
+    for job in range(2):
+        for seqs in groups:
+            got = decoder.decode_seq_batch(QCIF, seqs, device=cuda)
+            want = decoder.decode_seq_batch(QCIF, seqs, device="cpu")
+            for g, w in zip(got, want):
+                assert all(np.array_equal(a, b) for a, b in zip(g, w))
+        assert decoder.PROGRAMS.builds - builds == 5
+    assert len(decoder.PROGRAMS) == 5
+
+
+@pytest.mark.cuda
 def test_compile_check_and_dry_run_on_the_card(cuda):
     from p64tpu_torch.tools import dryrun
 

@@ -144,7 +144,9 @@ def test_parse_matches_jax_and_python(native, jnative, fmt, seed, p_mquant,
     assert got_fmt is TFORMATS[fmt.name] and want_fmt is fmt
     np.testing.assert_array_equal(got_tr, want_tr)
     # the port's dict adds the packed levels (tests/test_torch_levels.py)
-    assert set(got) == set(want_seq) | set(PACKED_KEYS)
+    # and each frame's damage word, all zero in a clean stream
+    assert set(got) == set(want_seq) | set(PACKED_KEYS) | {"damage"}
+    assert not got["damage"].any()
     for k in want_seq:
         assert got[k].dtype == want_seq[k].dtype, k
         np.testing.assert_array_equal(got[k], want_seq[k], err_msg=k)

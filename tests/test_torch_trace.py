@@ -16,6 +16,8 @@ from p64tpu_torch import trace
 from p64tpu_torch.control.ratecontrol import RateConfig
 from p64tpu_torch.core import decoder, encoder, graphs
 from p64tpu_torch.distrib import mesh as dm
+from p64tpu_torch.entropy.parse import StreamError
+from p64tpu_torch.native.binding import NativeBitIO
 from p64tpu_torch.spec.constants import QCIF
 from p64tpu_torch.tools import profile as profile_tool
 from p64tpu_torch.tools.batch_encode import encode_resilient
@@ -25,6 +27,9 @@ from port_bench import harness, spanlog, tracing
 torch.set_num_threads(1)
 
 STREAMS, FRAMES, CHUNK = 4, 3, 2
+#: bytes of the native parse's output buffers a frame
+FRAME_BYTES = sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                  for _, shape, dt in NativeBitIO._RAW_FIELDS)
 CPU = torch.device("cpu")
 CUDA = torch.device("cuda")
 
@@ -137,12 +142,51 @@ def test_decode_spans(traced):
 def test_counters_of_the_jobs(traced):
     mbs = STREAMS * FRAMES * QCIF.num_mbs
     # every copy stays on the CPU: no copy counter moves; a fixed
-    # quantizer codes every frame; every decoded MB's levels crossed packed
+    # quantizer codes every frame; every decoded MB's levels crossed packed;
+    # the parse's buffers hold each stream's pictures; the batch of 4
+    # streams needs no padding, and clean streams carry no damage
     assert traced[5] == {"p64.encode.macroblocks": mbs,
                          "p64.serialize.streams": STREAMS,
                          "p64.rate.coded_frames": STREAMS * FRAMES,
                          "p64.decode.macroblocks": mbs,
-                         "p64.decode.packed_mbs": mbs}
+                         "p64.decode.packed_mbs": mbs,
+                         "p64.decode.gobs": STREAMS * FRAMES * QCIF.num_gobs,
+                         "p64.parse.alloc_bytes": STREAMS * FRAMES
+                         * FRAME_BYTES}
+
+
+def test_the_decode_counts_padding_damage_and_refusals():
+    """Under the profiler, and only then: a batch of 3 streams padded to 4
+    counts the padded stream's MBs; damaged pictures and GOBs counted from
+    the damage words; a refused stream counted once, with its parse's
+    buffers."""
+    datas = [d for d, _ in _encode()]
+    seqs = [decoder.parse_to_tensors(d)[2] for d in datas[:3]]
+    seqs[0] = dict(seqs[0], damage=np.array([0, 1 << 15 | 5, 0], np.int32))
+    seqs[2] = dict(seqs[2], damage=np.array([1 << 15 | 2, 0, 0], np.int32))
+
+    def job():
+        decoder.decode_seq_batch(QCIF, seqs, device=CPU)
+        with pytest.raises(StreamError):
+            decoder.parse_to_tensors(b"\xff" * 64, resync=True)
+
+    before = trace.counters()
+    job()
+    assert trace.counters() == before
+    with profile(activities=[ProfilerActivity.CPU]):
+        job()
+    added = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+             if v != before.get(k, 0)}
+    mbs = 3 * FRAMES * QCIF.num_mbs
+    assert added == {"p64.decode.macroblocks": mbs,
+                     "p64.decode.packed_mbs": mbs,
+                     "p64.decode.padded_mbs": FRAMES * QCIF.num_mbs,
+                     "p64.decode.gobs": 3 * FRAMES * QCIF.num_gobs,
+                     "p64.decode.damaged_gobs": 3,
+                     "p64.decode.damaged_pictures": 2,
+                     "p64.decode.refused_streams": 1,
+                     # the refused stream has no start code: one frame
+                     "p64.parse.alloc_bytes": FRAME_BYTES}
 
 
 @pytest.mark.parametrize("streams", [1, 3])
@@ -340,7 +384,11 @@ DECODE_LOG = [
 DECODE_COUNTERS = {"p64.copy.h2d.pageable_bytes": 900,
                    "p64.copy.d2h.pageable_bytes": 700,
                    "p64.decode.macroblocks": 4,
-                   "p64.decode.packed_mbs": 4}
+                   "p64.decode.packed_mbs": 4,
+                   "p64.decode.gobs": 12,
+                   "p64.decode.damaged_gobs": 3,
+                   "p64.decode.padded_mbs": 4,
+                   "p64.parse.alloc_bytes": 6000}
 # encode: replays at 1.3-2.0 and 5.3-6.0 ms, one more kernel at 3.0-3.2 ms;
 # idle under symbols and serialize: 2.1-3.0, 3.2-3.6 and 6.1-7.6 ms
 ENCODE_TRACE = ([(1.25, 1.3, 2.0), (5.25, 5.3, 6.0)], [(3.0, 3.2)])
@@ -371,6 +419,12 @@ READERS = [
      1.0),
     ("planes_pinned_share.decode", DECODE_LOG, DECODE_COUNTERS,
      DECODE_TRACE, 0.0),
+    ("damaged_gob_share.decode", DECODE_LOG, DECODE_COUNTERS, DECODE_TRACE,
+     0.25),
+    ("parse_alloc_bytes_per_mb.decode", DECODE_LOG, DECODE_COUNTERS,
+     DECODE_TRACE, 1500.0),
+    ("padded_mb_share.decode", DECODE_LOG, DECODE_COUNTERS, DECODE_TRACE,
+     0.5),
 ]
 
 
@@ -434,6 +488,29 @@ def test_packed_share_reads_none_without_its_counters(monkeypatch, drop):
     _program(monkeypatch, _log(DECODE_LOG), counters)
     launches, extra = DECODE_TRACE
     read = harness.Manifest().reader("packed_mb_share.decode")
+    assert read(_reading(_events(launches, extra), len(launches))) is None
+
+
+#: the counter readers of the errored line's cell, with the counters each
+#: divides
+COUNTER_READERS = {
+    "damaged_gob_share.decode": ("p64.decode.damaged_gobs",
+                                 "p64.decode.gobs"),
+    "parse_alloc_bytes_per_mb.decode": ("p64.parse.alloc_bytes",
+                                        "p64.decode.macroblocks"),
+    "padded_mb_share.decode": ("p64.decode.padded_mbs",)}
+
+
+@pytest.mark.parametrize("name,drop", [(n, c) for n, cs in
+                                       COUNTER_READERS.items() for c in cs])
+def test_counter_readers_read_none_without_their_counters(monkeypatch, name,
+                                                          drop):
+    """A program without the counters (the parent of the change that added
+    them) reads nothing."""
+    counters = {k: v for k, v in DECODE_COUNTERS.items() if k != drop}
+    _program(monkeypatch, _log(DECODE_LOG), counters)
+    launches, extra = DECODE_TRACE
+    read = harness.Manifest().reader(name)
     assert read(_reading(_events(launches, extra), len(launches))) is None
 
 

@@ -230,7 +230,14 @@ DECODE_READERS = {
     "decode_step_ms", "device_idle_pct.decode", "native_parse_ms.decode",
     "stack_ms.decode", "host_wait_ms.decode", "planes_out_ms.decode",
     "parse_idle_pct.decode", "host_card_bytes_per_mb.decode",
-    "packed_mb_share.decode", "planes_pinned_share.decode"}
+    "packed_mb_share.decode", "planes_pinned_share.decode",
+    "parse_alloc_bytes_per_mb.decode"}
+#: the videophone's decode cells, clean and over the errored line, add the
+#: programs captured a job and the share of padded macroblocks; the line's
+#: the share of damaged GOBs
+VIDEOPHONE_DECODE_READERS = DECODE_READERS | {
+    "graph_builds_per_job.decode", "padded_mb_share.decode"}
+LINE_CELL = "qcif_p2_ber1e5.decode"
 
 
 def test_the_configuration():
@@ -258,6 +265,15 @@ def test_the_cells_and_their_metrics():
     cells = {c: {x["name"] for x in m.per_layer(c)} for c in m.cells}
     assert cells[CELL] == ENCODE_READERS
     assert cells["cif_q10.decode"] == DECODE_READERS
+    assert cells["qcif_p2.decode"] == VIDEOPHONE_DECODE_READERS
+    assert cells[LINE_CELL] == VIDEOPHONE_DECODE_READERS | {
+        "damaged_gob_share.decode"}
+    for cell in ("qcif_p2.decode", LINE_CELL):
+        assert m.cells[cell]["chips"] == 1
+        assert m.cells[cell]["traffic"] == "decode_videophone"
+        assert {x["name"] for x in m.end_to_end(cell)} == {
+            "decode_mb_per_s", "setup_s"}
+    assert m.cells[LINE_CELL]["config"] == "qcif_p2_ber1e5"
     assert {c for c, names in cells.items() if READER in names} == set(
         RATE_CELLS)
     assert m.cells[CELL]["chips"] == m.cells["cif_q10.decode"]["chips"] == 1
